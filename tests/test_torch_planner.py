@@ -1,0 +1,100 @@
+"""The port's host control plane against the JAX package's: the same
+KeyStats, made by the JAX package's generator from a fixed seed, must give
+bit-identical plans — same table, same moved keys, same loads and theta —
+from Mixed and from the RebalanceController's trigger, plan and rescale.
+"""
+
+import numpy as np
+import pytest
+
+from repro.core import RebalanceController as RefController
+from repro.core.balancer import Assignment as RefAssignment
+from repro.core.balancer import BalanceConfig as RefConfig
+from repro.core.balancer import mixed as ref_mixed
+from repro.core.balancer.hashing import Hash32 as RefHash32
+from repro.streams import WorkloadGen as RefGen
+from repro_torch.core import (Assignment, BalanceConfig, Hash32, KeyStats,
+                              RebalanceController)
+from repro_torch.core.balancer import mixed, strategy_names
+from repro_torch.streams import WorkloadGen
+
+
+def _port_stats(stats):
+    return KeyStats(keys=stats.keys, cost=stats.cost, mem=stats.mem,
+                    freq=stats.freq)
+
+
+def _assert_same_plan(got, want):
+    assert got.assignment.table == want.assignment.table
+    np.testing.assert_array_equal(np.sort(got.moved_keys),
+                                  np.sort(want.moved_keys))
+    np.testing.assert_array_equal(got.loads, want.loads)
+    assert got.theta == want.theta
+    assert got.table_size == want.table_size
+    assert got.migration_cost == want.migration_cost
+    assert got.feasible_balance == want.feasible_balance
+    assert got.feasible_table == want.feasible_table
+
+
+@pytest.mark.parametrize("k,z,n_dest,seed,table_max,window", [
+    (2000, 0.85, 15, 0, 3000, 1),
+    (1500, 1.1, 7, 3, 40, 2),
+    (1000, 1.3, 11, 8, 10, 3),
+])
+def test_mixed_plans_bit_identical(k, z, n_dest, seed, table_max, window):
+    gen = RefGen(k=k, z=z, f=1.0, seed=seed, window=window)
+    ref_a = RefAssignment(RefHash32(n_dest, seed=seed))
+    port_a = Assignment(Hash32(n_dest, seed=seed))
+    ref_cfg = RefConfig(theta_max=0.08, table_max=table_max, window=window)
+    cfg = BalanceConfig(theta_max=0.08, table_max=table_max, window=window)
+    for i in range(3):
+        stats = gen.interval(ref_a, fluctuate=i > 0)
+        want = ref_mixed(stats, ref_a, ref_cfg)
+        got = mixed(_port_stats(stats), port_a, cfg)
+        _assert_same_plan(got, want)
+        ref_a, port_a = want.assignment, got.assignment
+    assert port_a.table_size > 0
+
+
+def test_controller_rounds_and_rescale_bit_identical():
+    gens = [RefGen(k=1200, z=1.0, f=0.8, seed=4, window=2),
+            WorkloadGen(k=1200, z=1.0, f=0.8, seed=4, window=2)]
+    ref = RefController(RefAssignment(RefHash32(8, seed=4)),
+                        RefConfig(theta_max=0.05, table_max=120, window=2))
+    port = RebalanceController(Assignment(Hash32(8, seed=4)),
+                               BalanceConfig(theta_max=0.05, table_max=120,
+                                             window=2))
+    moves = ([], [])
+    ref.executor = lambda keys, old, new: moves[0].append(np.sort(keys))
+    port.executor = lambda keys, old, new: moves[1].append(np.sort(keys))
+    for i in range(4):
+        rs = gens[0].interval(ref.assignment, fluctuate=i > 0)
+        ps = gens[1].interval(port.assignment, fluctuate=i > 0)
+        np.testing.assert_array_equal(ps.cost, rs.cost)
+        np.testing.assert_array_equal(ps.mem, rs.mem)
+        assert port.should_trigger(ps) == ref.should_trigger(rs)
+        ev_r = ref.on_interval(rs)
+        ev_p = port.on_interval(ps)
+        assert (ev_p.interval, ev_p.triggered, ev_p.theta_before) == \
+            (ev_r.interval, ev_r.triggered, ev_r.theta_before)
+        if ev_r.result is not None:
+            _assert_same_plan(ev_p.result, ev_r.result)
+    for n in (11, 5):
+        ev_r = ref.rescale(n, rs)
+        ev_p = port.rescale(n, _port_stats(rs))
+        _assert_same_plan(ev_p.result, ev_r.result)
+    assert port.assignment.table == ref.assignment.table
+    assert port.assignment_version == ref.assignment_version
+    assert port.triggered_intervals() == ref.triggered_intervals()
+    assert len(moves[0]) == len(moves[1]) > 0
+    for a, b in zip(*moves):
+        np.testing.assert_array_equal(a, b)
+
+
+def test_only_mixed_is_registered_and_sketch_waits():
+    assert strategy_names() == ("mixed",)
+    a = Assignment(Hash32(4))
+    with pytest.raises(NotImplementedError, match="sketch"):
+        RebalanceController(a, BalanceConfig(), stats_mode="sketch")
+    with pytest.raises(ValueError, match="unknown algorithm"):
+        RebalanceController(a, BalanceConfig(), algorithm="pkg")
