@@ -23,10 +23,23 @@ It prints one JSON line per phase, each with its wall seconds:
 * ``stats``   — the stats path, ``KeyedStage(state_backend="columnar",
   substrate="kernels")`` on the card, for the stream's first 4 intervals,
   against the same CPU reports (float32 stats: 1e-6 relative).
+* ``serve``   — the serving slice: gemma3-12b at full width and depth
+  (48 layers, d_model 3840, 16/8 heads of 240, vocab 262144) with random
+  bf16 weights from a seeded generator on the card, 4 requests of 2048
+  prompt tokens. (1) the cache-free step ``make_serve_step(cfg,
+  use_flash=True)``, which must launch the flash kernel once per layer
+  (40 windowed, 8 global), each output held against the plain version on
+  the same q, k, v; (2) the same step with ``use_flash=False``, whose
+  logits must agree with (1) within atol 0.3 / rtol 0.05 (the JAX
+  package's serve tolerance); (3) prefill through the KV cache and 16
+  greedy tokens, each step timed, then ``serve_local``, which does the
+  same: neither may launch the flash kernel, and ``serve_local``'s first
+  token must equal (1)'s argmax wherever (1)'s top-1 margin exceeds twice
+  the gap measured in (2).
 
 Then one ``{"kernels": [...]}`` line (per kernel and call site: launches on
-its path, max error, kernel/plain/library times and the bytes bound), the
-card's name and power limit as ``nvidia-smi`` gives them, and last
+its path, max error, kernel/plain/library times and the bound), the card's
+name and power limit as ``nvidia-smi`` gives them, and last
 ``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero
 before that line; so does a machine without a CUDA device or a checkout
 without ``src/repro_torch``.
@@ -45,11 +58,13 @@ from pathlib import Path
 import numpy as np
 
 ROOT = Path(__file__).resolve().parent
-#: H100 SXM peaks (NVIDIA data sheet, 700 W): device-memory rate, and the
-#: non-tensor-core float32 rate, taken for the kernels' 32-bit integer and
-#: float operations (no tensor-core work in either kernel)
+#: H100 SXM peaks (NVIDIA data sheet, 700 W): device-memory rate; the
+#: non-tensor-core float32 rate, taken for the stream kernels' 32-bit integer
+#: and float operations; and the dense bf16 tensor-core rate, taken for
+#: attention's multiply-adds (the least time the card could take for them)
 HBM_BYTES_PER_S = 3.35e12
 SCALAR_OPS_PER_S = 67e12
+BF16_FLOPS_PER_S = 989e12
 #: 32-bit operations per key of the routing kernel: the fmix32 mix (9),
 #: the modulo and sign test (2), and a binary search of the sorted table,
 #: 4 per step (index, load, compare, select)
@@ -81,6 +96,22 @@ class Config:
     stats_intervals: int = 4
     table_capacity: int = 4096
     reps: int = 25
+
+
+@dataclasses.dataclass(frozen=True)
+class ServeConfig:
+    """The serving deployment: gemma3-12b at full width, a batch of 4
+    requests of 2048 prompt tokens (twice the local layers' 1024 window),
+    16 greedy tokens each."""
+
+    arch: str = "gemma3-12b"
+    batch: int = 4
+    prompt: int = 2048
+    tokens: int = 16
+    seed: int = 0
+    #: the JAX package's serve-path tolerance (tests/test_arch_smoke.py)
+    atol: float = 0.3
+    rtol: float = 0.05
 
 
 def emit(obj) -> None:
@@ -131,11 +162,13 @@ class Timer:
         return statistics.median(times)
 
 
-def bound(nbytes: int, ops: int) -> dict:
+def bound(nbytes: int, ops: int, ops_per_s: float = SCALAR_OPS_PER_S
+          ) -> dict:
     """The least time the card could take: the larger of moving ``nbytes``
-    (each input read once, each output written once) and doing ``ops``."""
+    (each input read once, each output written once) and doing ``ops`` at
+    ``ops_per_s``."""
     by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    by_ops = ops / SCALAR_OPS_PER_S * 1e3
+    by_ops = ops / ops_per_s * 1e3
     return {"bound_ms": max(by_bytes, by_ops),
             "bound_by": "bytes" if by_bytes >= by_ops else "operations"}
 
@@ -312,6 +345,109 @@ def phase_kernels(torch, cfg: Config, timer: Timer, dev):
     return rows
 
 
+#: the flash kernel's tolerance against its plain version, by dtype: the JAX
+#: package's own (tests/test_kernels.py: 2e-5 in float32, 2e-2 in bf16)
+FLASH_ATOL = {"float32": 2e-5, "bfloat16": 2e-2}
+
+
+def admitted_pairs(t: int, s: int, causal: bool, window: int) -> int:
+    """(query, key) pairs the mask admits for one head: the work the
+    attention needs (queries right-aligned against the keys)."""
+    q_pos = np.arange(t) + s - t
+    hi = np.minimum(q_pos, s - 1) if causal else np.full(t, s - 1)
+    lo = np.maximum(q_pos - window + 1, 0) if window > 0 else np.zeros(t)
+    return int(np.clip(hi - lo + 1, 0, None).sum())
+
+
+def _flash_inputs(torch, shape, dtype, dev, seed: int):
+    b, hq, hkv, t, s, d = shape
+    g = torch.Generator(device=dev).manual_seed(seed)
+    return [torch.randn(sh, generator=g, device=dev).to(dtype)
+            for sh in ((b, hq, t, d), (b, hkv, s, d), (b, hkv, s, d))]
+
+
+def check_flash_edges(torch, dev) -> float:
+    """The flash kernel at the edges of its contract against its plain
+    version; returns the largest error relative to each case's tolerance
+    (<= 1 passes)."""
+    from repro_torch.kernels import flash_attention, flash_attention_plain
+    worst = 0.0
+    for shape, window, dtype in (
+            ((1, 4, 4, 1, 256, 64), 0, torch.float32),     # T=1 decode
+            ((1, 16, 8, 1, 256, 240), 1024, torch.bfloat16),
+            ((1, 8, 2, 17, 250, 32), 0, torch.float32),    # ragged T and S
+            ((1, 16, 8, 17, 250, 240), 100, torch.bfloat16),
+            ((1, 4, 1, 96, 96, 32), 0, torch.float32),     # MQA
+            ((2, 16, 1, 130, 130, 240), 64, torch.bfloat16),
+            ((1, 2, 1, 100, 40, 16), 0, torch.float32),    # T > S: zero rows
+            ((2, 8, 2, 192, 192, 64), 16, torch.float32)):  # f32 window
+        q, k, v = _flash_inputs(torch, shape, dtype, dev, seed=sum(shape))
+        got = flash_attention(q, k, v, causal=True, window=window)
+        want = flash_attention_plain(q, k, v, causal=True, window=window)
+        tol = FLASH_ATOL[str(dtype).split(".")[-1]]
+        worst = max(worst, float((got.float() - want.float()).abs().max())
+                    / tol)
+    return worst
+
+
+def phase_flash(torch, scfg: ServeConfig, timer: Timer, dev) -> list:
+    """The flash kernel at the serve path's shapes, one row per masking
+    mode: against its plain version, with its time, the plain version's and
+    SDPA's (the one PyTorch call that computes the same function; the port
+    never calls it)."""
+    import torch.nn.functional as F
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention, flash_attention_plain
+    edge = check_flash_edges(torch, dev)
+    if edge > 1:
+        raise AssertionError(f"flash edge cases: {edge:.3g} x tolerance")
+    cfg = get_config(scfg.arch)
+    b, hq, hkv, d = scfg.batch, cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    t = s = scfg.prompt
+    q, k, v = _flash_inputs(torch, (b, hq, hkv, t, s, d), torch.bfloat16,
+                            dev, scfg.seed)
+    rows = []
+    for window in sorted(set(cfg.window_pattern), reverse=True):
+        got = flash_attention(q, k, v, causal=True, window=window)
+        want = flash_attention_plain(q, k, v, causal=True, window=window)
+        err = float((got.float() - want.float()).abs().max())
+        if err > FLASH_ATOL["bfloat16"]:
+            raise AssertionError(f"flash window={window}: kernel off its "
+                                 f"plain version by {err}")
+        if window:
+            pos = torch.arange(t, device=dev)
+            mask = (pos[None] <= pos[:, None]) & \
+                (pos[None] > pos[:, None] - window)
+            sdpa_kw = {"attn_mask": mask}
+        else:                      # T == S: top-left causal is right-aligned
+            sdpa_kw = {"is_causal": True}
+
+        def sdpa():
+            return F.scaled_dot_product_attention(q, k, v, enable_gqa=True,
+                                                  **sdpa_kw)
+
+        lib_err = float((sdpa().float() - want.float()).abs().max())
+        pairs = admitted_pairs(t, s, True, window)
+        nbytes = 2 * (q.numel() + k.numel() + v.numel() + got.numel())
+        rows.append({
+            "name": f"flash_attention[window={window}]" if window
+            else "flash_attention[global]",
+            "route": "cuda", "source": "src/repro_torch/csrc/flash_attention.cu",
+            "replaces": "src/repro/kernels/flash_attention.py:31",
+            "shape": {"b": b, "hq": hq, "hkv": hkv, "t": t, "s": s, "d": d,
+                      "window": window, "dtype": "bfloat16",
+                      "admitted_pairs_per_head": pairs},
+            "max_abs_err": err, "edge_err_over_tol": edge,
+            "library_max_abs_err": lib_err,
+            "ms": timer.ms(lambda: flash_attention(q, k, v, causal=True,
+                                                   window=window)),
+            "plain_ms": timer.ms(lambda: flash_attention_plain(
+                q, k, v, causal=True, window=window)),
+            **bound(nbytes, 4 * d * pairs * b * hq, BF16_FLOPS_PER_S),
+            "library_ms": timer.ms(sdpa)})
+    return rows
+
+
 # -- phases 3 and 4: the two configurations -------------------------------------
 
 def make_stage(cfg: Config, backend: str, substrate: str, device):
@@ -441,6 +577,175 @@ def phase_stats(cfg: Config, device, sync, record) -> dict:
             "stats_match_cpu": True}
 
 
+# -- phase 5: the serving slice --------------------------------------------------
+
+def phase_serve(torch, cfg, scfg: ServeConfig, device, sync) -> dict:
+    """The serve path of the model ``cfg`` on ``device``, at ``scfg``'s batch
+    and lengths (a smoke config on the CPU rehearses it). Returns the
+    metrics; ``launches`` holds the flash counter's rise in each call and
+    ``flash_calls`` the attention calls that reached the flash wrapper, by
+    window. ``main`` checks the counters, which stay 0 on the CPU."""
+    from repro_torch.kernels import flash_attention, flash_attention_plain
+    from repro_torch.launch.serve import init_request, serve_local
+    from repro_torch.models import attention as attn_mod
+    from repro_torch.models import init_cache, schema
+    from repro_torch.models.transformer import model_schema
+    from repro_torch.train.train_step import make_serve_step
+
+    dev = torch.device(device)
+    n_tokens = scfg.batch * scfg.prompt
+    calls: dict = {}
+    spy_state = {"check": False, "ratios": [], "errs": []}
+    ops_attention = attn_mod.flash_attention
+
+    def spy(q, k, v, causal=True, window=0):
+        """Counts each attention call that reaches the flash wrapper; while
+        ``check`` is set, holds its output against the plain version on the
+        same q, k, v. Tolerance: the JAX package's (2e-5 f32, 2e-2 bf16 at
+        unit-scale inputs) times v's rms, since each output row is a
+        weighted mean of v's rows, plus one ulp of the output's dtype."""
+        calls[window] = calls.get(window, 0) + 1
+        o = ops_attention(q, k, v, causal=causal, window=window)
+        if spy_state["check"]:
+            want = flash_attention_plain(q, k, v, causal=causal,
+                                         window=window).float()
+            err = (o.float() - want).abs()
+            tol = (FLASH_ATOL[str(q.dtype).split(".")[-1]]
+                   * float(v.float().pow(2).mean().sqrt())
+                   + torch.finfo(q.dtype).eps * want.abs())
+            spy_state["errs"].append(float(err.max()))
+            spy_state["ratios"].append(float((err / tol).max()))
+        return o
+
+    def timed(fn):
+        sync()
+        t0 = time.perf_counter()
+        res = fn()
+        sync()
+        return res, time.perf_counter() - t0
+
+    out = {"arch": cfg.name, "n_layers": cfg.n_layers, "d_model": cfg.d_model,
+           "n_heads": cfg.n_heads, "n_kv_heads": cfg.n_kv_heads,
+           "head_dim": cfg.hd, "d_ff": cfg.d_ff, "vocab": cfg.vocab,
+           "windows": [cfg.layer_window(i) for i in range(cfg.n_layers)],
+           "batch": scfg.batch, "prompt": scfg.prompt,
+           "new_tokens": scfg.tokens,
+           "params": schema.count_params(model_schema(cfg)),
+           "kv_cache_bytes": 2 * 2 * cfg.n_layers * scfg.batch
+           * (scfg.prompt + scfg.tokens) * cfg.n_kv_heads * cfg.hd}
+    launches = {}
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    params, prompt = init_request(
+        cfg, scfg.batch, scfg.prompt, dev,
+        torch.Generator(device=dev).manual_seed(scfg.seed))
+    batch = {"tokens": prompt}
+    attn_mod.flash_attention = spy
+    try:
+        # (1) the cache-free step through the flash kernel. The first call
+        # holds every kernel output against the plain version on the
+        # model's own activations; the second, identical, is timed.
+        step = make_serve_step(cfg, use_flash=True)
+        spy_state["check"] = True
+        step(params, None, batch, 0)
+        spy_state["check"] = False
+        calls.clear()
+        flash_attention.launches = 0
+        (flash_logits, _), secs = timed(lambda: step(params, None, batch, 0))
+        launches["cache_free_flash"] = flash_attention.launches
+        out["flash_calls"] = {str(w): n for w, n in sorted(calls.items())}
+        out["cache_free_flash"] = {"seconds": secs,
+                                   "prefill_tokens_per_s": n_tokens / secs}
+        out["flash_vs_plain_per_call"] = {
+            "calls": len(spy_state["ratios"]),
+            "max_abs_err": max(spy_state["errs"]),
+            "worst_err_over_tol": max(spy_state["ratios"]),
+            "tolerance": "FLASH_ATOL[dtype] * rms(v) + eps(dtype) * |plain|"}
+        if out["flash_vs_plain_per_call"]["worst_err_over_tol"] > 1:
+            raise AssertionError(f"flash kernel off its plain version on the "
+                                 f"model's activations: "
+                                 f"{out['flash_vs_plain_per_call']}")
+        # (2) the same step through the plain, query-chunked attention
+        step = make_serve_step(cfg, use_flash=False)
+        step(params, None, batch, 0)
+        calls.clear()
+        flash_attention.launches = 0
+        (plain_logits, _), secs = timed(lambda: step(params, None, batch, 0))
+        launches["cache_free_plain"] = flash_attention.launches
+        out["cache_free_plain"] = {"seconds": secs,
+                                   "prefill_tokens_per_s": n_tokens / secs,
+                                   "flash_calls": sum(calls.values())}
+        a, b = flash_logits.float(), plain_logits.float()
+        if a.shape != (scfg.batch, 1, cfg.vocab_padded) or \
+                not bool(torch.isfinite(a).all()):
+            raise AssertionError(f"cache-free logits malformed: {a.shape}")
+        # a secondary check: at this init the model amplifies rounding
+        # through its layers, so the logits gap sits near the tolerance
+        gap = (a - b).abs()
+        out["flash_vs_plain"] = {
+            "max_abs_gap": float(gap.max()),
+            "max_gap_over_tol": float((gap / (scfg.atol + scfg.rtol
+                                              * b.abs())).max()),
+            "atol": scfg.atol, "rtol": scfg.rtol}
+        torch.testing.assert_close(a, b, atol=scfg.atol, rtol=scfg.rtol)
+
+        # (3) prefill through the KV cache and greedy decode: first the
+        # steps serve_local runs, each timed, on the same weights; then
+        # serve_local itself, which makes its weights anew
+        calls.clear()
+        flash_attention.launches = 0
+        step = make_serve_step(cfg)
+        cache = init_cache(cfg, scfg.batch, scfg.prompt + scfg.tokens, dev)
+        (logits, cache), prefill_s = timed(
+            lambda: step(params, cache, batch, 0))
+        decode_ms = []
+        for i in range(scfg.tokens):
+            nxt = torch.argmax(logits[:, -1], dim=-1)[:, None]
+            (logits, cache), secs = timed(
+                lambda: step(params, cache, {"tokens": nxt}, scfg.prompt + i))
+            decode_ms.append(secs * 1e3)
+        del params, cache, logits
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+        (first, greedy), secs = timed(lambda: serve_local(
+            cfg, scfg.batch, scfg.prompt, scfg.tokens, device=dev,
+            generator=torch.Generator(device=dev).manual_seed(scfg.seed)))
+        launches["cached"] = flash_attention.launches
+    finally:
+        attn_mod.flash_attention = ops_attention
+    if calls:
+        raise AssertionError(f"the cached path reached flash: {calls}")
+    if greedy.shape != (scfg.batch, scfg.tokens) or \
+            not bool(torch.isfinite(first.float()).all()):
+        raise AssertionError("serve_local output malformed")
+    # secondary: the cached prefill attends through the same plain path as
+    # (2); its first token is checked only where (1)'s top-1 margin is
+    # clear of twice the gap, which at this init may be no request at all
+    torch.testing.assert_close(first.float(), a, atol=scfg.atol,
+                               rtol=scfg.rtol)
+    top2 = a[:, -1].topk(2, dim=-1).values
+    margin = (top2[:, 0] - top2[:, 1]).cpu().numpy()
+    clear = margin > 2 * out["flash_vs_plain"]["max_abs_gap"]
+    want = a[:, -1].argmax(-1).cpu().numpy()
+    if not np.array_equal(greedy[clear, 0], want[clear]):
+        raise AssertionError(f"prefill's next tokens {greedy[:, 0]} differ "
+                             f"from the cache-free step's {want} "
+                             f"(margins {margin})")
+    out["cached"] = {
+        "serve_local_seconds": secs, "prefill_seconds": prefill_s,
+        "prefill_tokens_per_s": n_tokens / prefill_s,
+        "prefill_vs_flash_max_abs_gap": float((first.float() - a).abs().max()),
+        "prefill_vs_plain_max_abs_gap": float((first.float() - b).abs().max()),
+        "decode_ms_per_token": decode_ms,
+        "decode_ms_per_token_median": statistics.median(decode_ms),
+        "first_token_checked_requests": int(clear.sum()),
+        "top1_margins": margin.tolist(), "greedy_tokens": greedy.tolist()}
+    out["launches"] = launches
+    if dev.type == "cuda":
+        out["device_memory_peak_bytes"] = torch.cuda.max_memory_allocated()
+    return out
+
+
 def main() -> int:
     try:
         import torch
@@ -458,13 +763,16 @@ def main() -> int:
     from repro_torch.kernels import key_stats, route_keys
 
     cfg = Config()
+    scfg = ServeConfig()
     t0 = time.perf_counter()
     emit({"phase": "build", **phase_build(torch),
           "seconds": time.perf_counter() - t0})
 
     t0 = time.perf_counter()
-    rows = phase_kernels(torch, cfg, Timer(torch, cfg.reps),
-                         torch.device("cuda"))
+    timer = Timer(torch, cfg.reps)
+    rows = phase_kernels(torch, cfg, timer, torch.device("cuda")) + \
+        phase_flash(torch, scfg, timer, torch.device("cuda"))
+    del timer
     emit({"phase": "kernels", "kernels": rows,
           "seconds": time.perf_counter() - t0})
 
@@ -497,10 +805,32 @@ def main() -> int:
     emit({"phase": "stats", **stats, "launches": stats_launches,
           "seconds": time.perf_counter() - t0})
 
+    t0 = time.perf_counter()
+    from repro_torch.configs import get_config
+    serve = phase_serve(torch, get_config(scfg.arch), scfg, "cuda", sync)
+    want = {str(w): n for w, n in sorted(
+        {w: serve["windows"].count(w) for w in set(serve["windows"])}
+        .items())}
+    flash_launches = serve["launches"]
+    if (flash_launches["cache_free_flash"] != serve["n_layers"]
+            or serve["flash_calls"] != want):
+        raise AssertionError(f"the cache-free step launched the flash "
+                             f"kernel {flash_launches['cache_free_flash']} "
+                             f"times ({serve['flash_calls']}), not once per "
+                             f"layer ({want})")
+    if flash_launches["cache_free_plain"] or flash_launches["cached"]:
+        raise AssertionError(f"a path without flash launched it: "
+                             f"{flash_launches}")
+    emit({"phase": "serve", **serve, "card": nvidia_smi_line(),
+          "seconds": time.perf_counter() - t0})
+
     launches = {"routing_lookup[dense]": main_launches["route_keys"],
                 "routing_lookup[per_tuple]": stats_launches["route_keys"],
                 "key_stats[zipf_tuples]": stats_launches["key_stats"],
-                "key_stats[stats_path]": stats_launches["key_stats"]}
+                "key_stats[stats_path]": stats_launches["key_stats"],
+                **{f"flash_attention[window={w}]" if w != "0"
+                   else "flash_attention[global]": n
+                   for w, n in serve["flash_calls"].items()}}
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     emit({"kernels": [{k: {**row, "launches": launches[row["name"]]}[k]

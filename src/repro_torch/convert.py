@@ -1,4 +1,4 @@
-"""Carry a running stage's state across from the JAX package.
+"""Carry state and weights across from the JAX package.
 
 :func:`load_reference_state` installs a snapshot of a JAX ``KeyedStage`` —
 plain numpy arrays and ints, so this package never imports the other one —
@@ -23,14 +23,20 @@ in-flight protocol state: ``pending_delta`` (the keys the next interval's
 pause window buffers, or None), ``migrated_bytes_pending``,
 ``plan_time_pending``, plus the accumulated ``output_keys`` /
 ``output_values`` and ``emitted_sum``. These default to a stage at rest.
+
+:func:`load_reference_params` carries a model's weights across: a nested
+dict of numpy arrays (``np.asarray`` of each leaf of a JAX parameter
+pytree) becomes the same tree of torch tensors.
 """
 
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 from .core.balancer import Assignment, Hash32, KeyStats
 from .streams.backends import DeviceBackend
+from .streams.device import resolve_device
 from .streams.engine import KeyedStage
 from .streams.state import ColumnarPack
 
@@ -95,3 +101,27 @@ def load_reference_state(stage: KeyedStage, snapshot: dict) -> None:
         fleet.col_iv = np.asarray(snapshot["col_iv"], dtype=np.int64).copy()
     for store, pack in zip(stage.stores, packs):
         store.install_batch(pack)
+
+
+def _tensor(a: np.ndarray, device: torch.device) -> torch.Tensor:
+    a = np.array(a)      # a writable, contiguous copy
+    if a.dtype.name == "bfloat16":
+        # ml_dtypes' bfloat16, which torch.from_numpy refuses: same bits
+        return torch.from_numpy(a.view(np.int16)).view(torch.bfloat16) \
+            .to(device)
+    return torch.from_numpy(a).to(device)
+
+
+def load_reference_params(tree, device=None):
+    """A nested dict of numpy arrays (a JAX parameter or cache tree taken
+    leaf by leaf with ``np.asarray``) as the same tree of torch tensors on
+    ``device`` (None = the CUDA card), bit for bit; bfloat16 leaves stay
+    bfloat16."""
+    dev = resolve_device(device)
+
+    def convert(node):
+        if isinstance(node, dict):
+            return {k: convert(v) for k, v in node.items()}
+        return _tensor(node, dev)
+
+    return convert(tree)

@@ -2,6 +2,11 @@
 ``kernels/ref.py``): the correctness ground truth the port's kernels and
 their wrappers are held against.
 
+:func:`flash_attention` follows the Pallas kernel where the JAX oracle
+differs from it: a query row that admits no key gives 0 there (the kernel
+divides by ``max(l, 1e-30)``), where the oracle's softmax over all ``-inf``
+gives NaN.
+
 torch cannot shift ``uint32`` on the CPU, so the 32-bit mix works in int64
 with ``& 0xFFFFFFFF`` after every step; each 32x32-bit product is split into
 16-bit halves so no intermediate leaves the int64 range.
@@ -63,3 +68,36 @@ def routing_lookup(keys: torch.Tensor, table_keys: torch.Tensor,
     any_hit = hit.any(dim=1)
     slot = hit.to(torch.int32).argmax(dim=1)
     return torch.where(any_hit, table_dests[slot], base).to(torch.int32)
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    causal: bool = True, window: int = 0) -> torch.Tensor:
+    """GQA attention, the semantics of the Pallas ``_flash_kernel``.
+
+    q: (B, Hq, T, D); k, v: (B, Hkv, S, D), Hq % Hkv == 0. Scale ``D**-0.5``;
+    query ``i`` sits at position ``i + S - T`` (right-aligned); key ``j`` is
+    admitted when ``j <= pos`` (causal) and ``j > pos - window``
+    (``window > 0``). float32 arithmetic, output in ``q.dtype``; a row with
+    no admitted key is 0.
+    """
+    b, hq, t, d = q.shape
+    hkv, s = k.shape[1], k.shape[2]
+    g = hq // hkv
+    qg = q.reshape(b, hkv, g, t, d).to(torch.float32)
+    logits = torch.einsum("bkgtd,bksd->bkgts", qg,
+                          k.to(torch.float32)) * d ** -0.5
+    q_pos = torch.arange(t, device=q.device)[:, None] + (s - t)
+    k_pos = torch.arange(s, device=q.device)[None, :]
+    mask = torch.ones((t, s), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= k_pos <= q_pos
+    if window > 0:
+        mask &= k_pos > q_pos - window
+    logits = logits.masked_fill(~mask, float("-inf"))
+    # a fully masked row has max -inf; -1e30 keeps exp(-inf - m) at 0
+    m = logits.amax(dim=-1, keepdim=True).clamp(min=-1e30)
+    p = torch.exp(logits - m)
+    l = p.sum(dim=-1, keepdim=True)
+    out = torch.einsum("bkgts,bksd->bkgtd", p, v.to(torch.float32))
+    out = out / l.clamp(min=1e-30)
+    return out.reshape(b, hq, t, d).to(q.dtype)

@@ -1,0 +1,88 @@
+"""Serving launcher — the local mode of the JAX package's
+``launch/serve.py``: random weights, a random prompt, prefill through the KV
+cache and greedy decoding, on one device.
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma3-12b
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-7b \\
+      --device cpu --tokens 8
+
+The CLI runs the arch's smoke config, as the JAX launcher does; callers
+with a card pass a full config to :func:`serve_local`. The JAX launcher's
+``--mode lower`` (XLA lowering for a TPU mesh) is not ported.
+"""
+
+from __future__ import annotations
+
+import argparse
+from typing import Optional, Tuple
+
+import numpy as np
+import torch
+
+from ..configs import smoke_config
+from ..models import init_cache, model_schema, schema
+from ..models.config import ModelConfig
+from ..streams.device import resolve_device
+from ..train.train_step import make_serve_step
+
+
+def init_request(cfg: ModelConfig, batch: int, prompt: int, device,
+                 generator: torch.Generator):
+    """Random weights, then a (batch, prompt) prompt of random token ids,
+    both drawn from ``generator`` in that order. Returns (params, tokens)."""
+    params = schema.init(model_schema(cfg), generator, device)
+    tokens = torch.randint(0, cfg.vocab, (batch, prompt), generator=generator,
+                           device=device)
+    return params, tokens
+
+
+def serve_local(cfg: ModelConfig, batch: int = 2, prompt: int = 16,
+                tokens: int = 16, device=None,
+                generator: Optional[torch.Generator] = None
+                ) -> Tuple[torch.Tensor, np.ndarray]:
+    """Prefill a random ``batch`` x ``prompt`` request through the KV cache,
+    then decode ``tokens`` greedy tokens, one step each. Attention with a
+    cache takes the plain path, so this never reaches the flash kernel.
+
+    Weights and prompt come from :func:`init_request` with ``generator``
+    (seed 0 on the device when None). ``device=None`` means the CUDA card
+    and raises without one. Returns the prefill's next-token logits
+    (batch, 1, vocab_padded) and the greedy tokens (batch, tokens) int64.
+    """
+    dev = resolve_device(device)
+    if generator is None:
+        generator = torch.Generator(device=dev).manual_seed(0)
+    params, prompt_tokens = init_request(cfg, batch, prompt, dev, generator)
+    serve_step = make_serve_step(cfg)
+    cache = init_cache(cfg, batch, prompt + tokens, dev)
+    logits, cache = serve_step(params, cache, {"tokens": prompt_tokens}, 0)
+    first = logits
+    idx = prompt
+    outs = []
+    for _ in range(tokens):
+        nxt = torch.argmax(logits[:, -1], dim=-1)[:, None]
+        outs.append(nxt[:, 0].cpu().numpy())
+        logits, cache = serve_step(params, cache, {"tokens": nxt}, idx)
+        idx += 1
+    greedy = np.stack(outs, 1) if outs else np.zeros((batch, 0), np.int64)
+    return first, greedy
+
+
+def main(argv=None) -> None:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--arch", required=True)
+    ap.add_argument("--batch", type=int, default=2)
+    ap.add_argument("--prompt", type=int, default=16)
+    ap.add_argument("--tokens", type=int, default=16)
+    ap.add_argument("--device", default=None,
+                    help="torch device (default: the CUDA card)")
+    args = ap.parse_args(argv)
+    arch = args.arch.replace("-", "_")
+    _, greedy = serve_local(smoke_config(arch), args.batch, args.prompt,
+                            args.tokens, device=args.device)
+    print(f"{arch}: decoded {args.tokens} tokens x batch {args.batch}")
+    print(greedy)
+
+
+if __name__ == "__main__":
+    main()

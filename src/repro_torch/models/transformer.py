@@ -1,0 +1,148 @@
+"""Decoder-only LM assembler — the JAX package's ``models/transformer.py``
+for the layer kinds the port has: attention followed by a dense SwiGLU MLP.
+
+Layers are grouped into *superblocks* of ``cfg.layer_pattern`` length with
+stacked parameters (leading ``n_groups`` dim), as in the JAX package, so a
+parameter tree converts one-to-one; the JAX package's ``lax.scan`` over the
+groups is a Python loop here. The same forward serves a cache-free step
+(cache=None), prefill (cache + index 0, T = prompt) and decode (cache +
+index t, T = 1).
+
+mamba, sLSTM and mLSTM layers, MoE MLPs, the whisper encoder and the vision
+prefix raise ``NotImplementedError`` until their slices.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, Optional
+
+import torch
+
+from . import attention as attn_mod
+from . import layers
+from .config import ModelConfig
+from .schema import ParamSpec, tree_map
+
+PyTree = Any
+
+
+def _check_ported(cfg: ModelConfig) -> None:
+    missing = sorted({k for k in cfg.layer_pattern if k != "attn"})
+    if cfg.moe_experts:
+        missing.append("moe")
+    if cfg.encoder_layers or cfg.frontend != "none":
+        missing.append(f"frontend {cfg.frontend}")
+    if missing:
+        raise NotImplementedError(
+            f"{cfg.name}: {', '.join(missing)} not ported yet (ROADMAP "
+            "Queue A item 4)")
+
+
+# ------------------------------------------------------------------ schema --
+def _sub_schema(cfg: ModelConfig, n_groups: int):
+    stack = (n_groups,)
+    sch: Dict[str, Any] = {"norm": layers.rmsnorm_schema(cfg.d_model, stack),
+                           "attn": attn_mod.attn_schema(cfg, stack)}
+    if cfg.d_ff > 0:
+        sch["mlp_norm"] = layers.rmsnorm_schema(cfg.d_model, stack)
+        sch["mlp"] = layers.mlp_schema(cfg, stack)
+    return sch
+
+
+def model_schema(cfg: ModelConfig) -> PyTree:
+    cfg.validate()
+    _check_ported(cfg)
+    period = cfg.pattern_period
+    n_groups = cfg.n_layers // period
+    sch: Dict[str, Any] = {
+        "embed": layers.embed_schema(cfg),
+        "final_norm": layers.rmsnorm_schema(cfg.d_model),
+        "groups": {f"sub{j}": _sub_schema(cfg, n_groups)
+                   for j in range(period)},
+    }
+    if not cfg.tie_embeddings:
+        sch["unembed"] = layers.unembed_schema(cfg)
+    return sch
+
+
+# ------------------------------------------------------------------- cache --
+def cache_schema(cfg: ModelConfig, batch: int, max_seq: int) -> PyTree:
+    """Decode-state tree as ParamSpecs: per attention sub-layer, stacked
+    (n_groups, B, S_max, Hkv*Dh) K and V planes."""
+    _check_ported(cfg)
+    n_groups = cfg.n_layers // cfg.pattern_period
+    shape = (n_groups, batch, max_seq, cfg.n_kv_heads * cfg.hd)
+    axes = ("stack", "batch", "kv_seq", "kv_flat")
+    return {f"sub{j}": {"k": ParamSpec(shape, axes, init="zeros"),
+                        "v": ParamSpec(shape, axes, init="zeros")}
+            for j in range(cfg.pattern_period)}
+
+
+def init_cache(cfg: ModelConfig, batch: int, max_seq: int,
+               device) -> PyTree:
+    return tree_map(lambda s: torch.zeros(s.shape, dtype=s.dtype,
+                                          device=device),
+                    cache_schema(cfg, batch, max_seq))
+
+
+# ----------------------------------------------------------------- forward --
+def _apply_sub(p, cfg: ModelConfig, j: int, x, positions, cache, cache_index,
+               use_flash: bool):
+    h = layers.rmsnorm(p["norm"], x, cfg.norm_eps)
+    out, new_cache = attn_mod.attn(
+        p["attn"], cfg, h, positions, window=cfg.layer_window(j),
+        causal=True, cache=cache, cache_index=cache_index,
+        use_flash=use_flash)
+    x = x + out
+    if "mlp" in p:
+        h = layers.rmsnorm(p["mlp_norm"], x, cfg.norm_eps)
+        x = x + layers.mlp(p["mlp"], h)
+    return x, new_cache
+
+
+def decoder_apply(params, cfg: ModelConfig, x, positions,
+                  cache: Optional[PyTree] = None, cache_index: int = 0,
+                  use_flash: bool = False):
+    """x: (B, T, D) -> (x, cache). The cache, when given, is updated in
+    place and returned; without one the second value is None."""
+    _check_ported(cfg)
+    period = cfg.pattern_period
+    n_groups = cfg.n_layers // period
+    for g in range(n_groups):
+        gp = tree_map(lambda a: a[g], params["groups"])
+        for j in range(period):
+            sub_cache = (tree_map(lambda a: a[g], cache[f"sub{j}"])
+                         if cache is not None else None)
+            x, _ = _apply_sub(gp[f"sub{j}"], cfg, j, x, positions,
+                              sub_cache, cache_index, use_flash)
+    return x, cache
+
+
+def forward(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
+            cache: Optional[PyTree] = None, cache_index: int = 0,
+            use_flash: bool = False):
+    """batch: {"tokens": (B, T)}. Returns (hidden (B, T, D), cache)."""
+    tokens = batch["tokens"]
+    x = layers.embed(params["embed"], tokens).to(torch.bfloat16)
+    t = x.shape[1]
+    positions = cache_index + torch.arange(t, device=x.device)
+    x, new_cache = decoder_apply(params, cfg, x, positions, cache=cache,
+                                 cache_index=cache_index,
+                                 use_flash=use_flash)
+    x = layers.rmsnorm(params["final_norm"], x, cfg.norm_eps)
+    return x, new_cache
+
+
+def logits_from_hidden(params, cfg: ModelConfig, hidden: torch.Tensor
+                       ) -> torch.Tensor:
+    if cfg.tie_embeddings:
+        logits = hidden @ params["embed"]["tokens"].T
+    else:
+        logits = layers.unembed(params["unembed"], hidden)
+    # mask vocab padding
+    if cfg.vocab_padded != cfg.vocab:
+        mask = torch.zeros(cfg.vocab_padded, dtype=logits.dtype,
+                           device=logits.device)
+        mask[cfg.vocab:] = -1e30
+        logits = logits + mask
+    return logits

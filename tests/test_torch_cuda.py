@@ -12,8 +12,12 @@ import torch
 
 from repro_torch.core import (Assignment, BalanceConfig, Hash32,
                               RebalanceController)
-from repro_torch.kernels import (RoutingTable, key_stats, key_stats_plain,
-                                 route_keys, route_plain)
+from repro_torch.configs import smoke_config
+from repro_torch.kernels import (RoutingTable, flash_attention,
+                                 flash_attention_plain, key_stats,
+                                 key_stats_plain, route_keys, route_plain)
+from repro_torch.launch.serve import init_request
+from repro_torch.train.train_step import make_serve_step
 from repro_torch.streams import KeyedStage, MergeCounts, WordCount, WorkloadGen
 
 pytestmark = pytest.mark.cuda
@@ -83,3 +87,50 @@ def test_device_stage_on_cuda_matches_cpu(cuda, op):
             (rc.theta, rc.table_size, rc.migrated_bytes)
         np.testing.assert_array_equal(rg.task_loads, rc.task_loads)
     assert stages[0].outputs == stages[1].outputs
+
+
+@pytest.mark.parametrize("dtype,atol", [(torch.float32, 2e-5),
+                                        (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("b,hq,hkv,t,s,d,window", [
+    (1, 2, 2, 64, 64, 32, 0),        # MHA square
+    (2, 8, 2, 128, 128, 64, 0),      # GQA 4:1
+    (1, 4, 1, 96, 96, 32, 0),        # MQA, ragged T
+    (1, 4, 4, 1, 256, 64, 0),        # decode: one query vs KV cache
+    (1, 8, 2, 17, 250, 32, 0),       # chunked decode, ragged both axes
+    (1, 4, 2, 192, 192, 32, 16),     # sliding windows
+    (1, 4, 2, 192, 192, 32, 300),
+    (1, 2, 1, 100, 40, 16, 0),       # T > S: fully masked rows give 0
+    (2, 16, 8, 300, 300, 240, 100),  # gemma3's head dim
+    (1, 4, 1, 17, 250, 256, 0),      # the largest head dim
+])
+def test_flash_kernel_matches_plain(cuda, b, hq, hkv, t, s, d, window, dtype,
+                                    atol):
+    g = torch.Generator(device=cuda).manual_seed(t * s + d)
+    q, k, v = (torch.randn(shape, generator=g, device=cuda).to(dtype)
+               for shape in ((b, hq, t, d), (b, hkv, s, d), (b, hkv, s, d)))
+    before = flash_attention.launches
+    got = flash_attention(q, k, v, causal=True, window=window)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + 1
+    assert got.dtype == dtype and got.shape == q.shape
+    torch.testing.assert_close(
+        got.float(), flash_attention_plain(q, k, v, causal=True,
+                                           window=window).float(),
+        rtol=0, atol=atol)
+
+
+@pytest.mark.parametrize("arch", ["gemma3_12b", "qwen2_7b"])
+def test_cache_free_serve_step_on_cuda(cuda, arch):
+    """One flash launch per layer; the logits agree with the plain
+    attention path within the serve tolerance (atol 0.3, rtol 0.05)."""
+    cfg = smoke_config(arch)
+    params, tokens = init_request(cfg, 2, 80, cuda,
+                                  torch.Generator(device=cuda).manual_seed(1))
+    before = flash_attention.launches
+    flash, _ = make_serve_step(cfg, use_flash=True)(
+        params, None, {"tokens": tokens}, 0)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + cfg.n_layers
+    plain, _ = make_serve_step(cfg)(params, None, {"tokens": tokens}, 0)
+    torch.testing.assert_close(flash.float(), plain.float(), rtol=0.05,
+                               atol=0.3)

@@ -1,7 +1,8 @@
 """The port stands alone: no module of ``src/repro_torch/`` and not
 ``chip_smoke.py`` imports JAX or the JAX package, the package imports and
-runs with both blocked, and its entry points refuse to run without a CUDA
-device unless the caller asks for the CPU."""
+runs with both blocked (the stream stage and a smoke serve step), and its
+entry points refuse to run without a CUDA device unless the caller asks for
+the CPU."""
 
 import ast
 import os
@@ -65,6 +66,27 @@ else:
 s = stage(device="cpu")
 r = s.process_interval_arrays(np.arange(200, dtype=np.int64) % 37)
 assert r.tuples == 200 and s.total_state_keys() == 37
+
+import torch
+import repro_torch.models
+from repro_torch.configs import smoke_config
+from repro_torch.launch.serve import init_request, serve_local
+from repro_torch.train.train_step import make_serve_step
+cfg = smoke_config("gemma3_12b")
+try:
+    serve_local(cfg)
+except RuntimeError as e:
+    assert "device='cpu'" in str(e)
+else:
+    raise AssertionError("serve_local without device= ran with no CUDA")
+params, tokens = init_request(cfg, 2, 40, "cpu",
+                              torch.Generator().manual_seed(0))
+logits, cache = make_serve_step(cfg, use_flash=True)(
+    params, None, {"tokens": tokens}, 0)
+assert logits.shape == (2, 1, cfg.vocab_padded) and cache is None
+assert bool(torch.isfinite(logits.float()).all())
+assert not any(m == "jax" or m.startswith(("jax.", "repro."))
+               for m in sys.modules if sys.modules[m] is not None)
 print("ok")
 """
 
