@@ -14,6 +14,9 @@ It prints one JSON line per phase, each with its wall seconds:
 * ``kernels`` — each kernel against its plain PyTorch version on the card,
   at the shapes the two configurations below give it plus edge cases,
   timed with CUDA events (median of 25 launches, L2 flushed before each).
+  The flash rows also carry ``tflops`` (the mask's 4 D FLOPs per admitted
+  (query, key) pair over the kernel's time) and ``bound_share``
+  (``bound_ms / ms``: 1 would be the card's peak).
 * ``stream``  — the main path, ``KeyedStage(state_backend="device",
   substrate="kernels")`` on the card: WordCount at the paper's Table II
   defaults (z = 0.85, f = 1.0, 15 tasks, theta_max = 0.08, A_max = 3000),
@@ -380,7 +383,8 @@ def check_flash_edges(torch, dev) -> float:
             ((1, 4, 1, 96, 96, 32), 0, torch.float32),     # MQA
             ((2, 16, 1, 130, 130, 240), 64, torch.bfloat16),
             ((1, 2, 1, 100, 40, 16), 0, torch.float32),    # T > S: zero rows
-            ((2, 8, 2, 192, 192, 64), 16, torch.float32)):  # f32 window
+            ((2, 8, 2, 192, 192, 64), 16, torch.float32),  # f32 window
+            ((2, 4, 2, 150, 170, 20), 0, torch.bfloat16)):  # D padded to 24
         q, k, v = _flash_inputs(torch, shape, dtype, dev, seed=sum(shape))
         got = flash_attention(q, k, v, causal=True, window=window)
         want = flash_attention_plain(q, k, v, causal=True, window=window)
@@ -429,6 +433,10 @@ def phase_flash(torch, scfg: ServeConfig, timer: Timer, dev) -> list:
         lib_err = float((sdpa().float() - want.float()).abs().max())
         pairs = admitted_pairs(t, s, True, window)
         nbytes = 2 * (q.numel() + k.numel() + v.numel() + got.numel())
+        flops = 4 * d * pairs * b * hq
+        kernel_ms = timer.ms(lambda: flash_attention(q, k, v, causal=True,
+                                                     window=window))
+        lower = bound(nbytes, flops, BF16_FLOPS_PER_S)
         rows.append({
             "name": f"flash_attention[window={window}]" if window
             else "flash_attention[global]",
@@ -438,13 +446,14 @@ def phase_flash(torch, scfg: ServeConfig, timer: Timer, dev) -> list:
                       "window": window, "dtype": "bfloat16",
                       "admitted_pairs_per_head": pairs},
             "max_abs_err": err, "edge_err_over_tol": edge,
-            "library_max_abs_err": lib_err,
-            "ms": timer.ms(lambda: flash_attention(q, k, v, causal=True,
-                                                   window=window)),
+            "library_max_abs_err": lib_err, "ms": kernel_ms,
+            # the mask's work (4 D FLOPs an admitted pair) over the time,
+            # and the share of the bound the kernel reaches
+            "tflops": flops / kernel_ms * 1e-9,
+            "bound_share": lower["bound_ms"] / kernel_ms,
             "plain_ms": timer.ms(lambda: flash_attention_plain(
                 q, k, v, causal=True, window=window)),
-            **bound(nbytes, 4 * d * pairs * b * hq, BF16_FLOPS_PER_S),
-            "library_ms": timer.ms(sdpa)})
+            **lower, "library_ms": timer.ms(sdpa)})
     return rows
 
 

@@ -2,11 +2,12 @@
 
 Each ``csrc/*.cu`` file compiles on its own into a shared library with a
 plain C interface (no PyTorch headers, so a build takes seconds). The
-libraries go into ``repro_torch/build/``, named by a hash of their source and
-flags, so an edited source rebuilds and an unchanged one is reused. Nothing
-builds at import time: a kernel's wrapper calls :func:`load` at its first
-launch, and :func:`build` compiles several sources at once, one ``nvcc``
-process each, all started together.
+libraries go into ``repro_torch/build/``, named by a hash of their source,
+the headers in ``csrc/`` and the flags, so an edited source or header
+rebuilds and an unchanged one is reused. Nothing builds at import time: a
+kernel's wrapper calls :func:`load` at its first launch, and :func:`build`
+compiles several sources at once, one ``nvcc`` process each, all started
+together.
 """
 
 from __future__ import annotations
@@ -42,9 +43,14 @@ def nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f"{name}-{digest[:16]}.so"
+    """Where ``csrc/<name>.cu``'s library goes: named by a digest of the
+    source, of every header in ``csrc/`` (a source may include any of
+    them) and of the flags."""
+    digest = hashlib.sha256()
+    for path in (CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))):
+        digest.update(path.name.encode() + b"\0" + path.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"{name}-{digest.hexdigest()[:16]}.so"
 
 
 def build(names: Iterable[str] = SOURCES) -> Dict[str, Path]:

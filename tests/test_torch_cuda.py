@@ -119,6 +119,97 @@ def test_flash_kernel_matches_plain(cuda, b, hq, hkv, t, s, d, window, dtype,
         rtol=0, atol=atol)
 
 
+def _bf16_inputs(cuda, shape, seed):
+    b, hq, hkv, t, s, d = shape
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    return [torch.randn(sh, generator=g, device=cuda).to(torch.bfloat16)
+            for sh in ((b, hq, t, d), (b, hkv, s, d), (b, hkv, s, d))]
+
+
+def _check_bf16_launch(q, k, v, window):
+    before = flash_attention.launches
+    got = flash_attention(q, k, v, causal=True, window=window)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + 1
+    assert got.dtype == torch.bfloat16 and got.shape == q.shape
+    assert got.is_contiguous()
+    torch.testing.assert_close(
+        got.float(), flash_attention_plain(q, k, v, causal=True,
+                                           window=window).float(),
+        rtol=0, atol=2e-2)
+
+
+@pytest.mark.parametrize("shape,window", [
+    ((1, 16, 8, 2048, 2048, 240), 1024),  # the serve path's window layer
+    ((1, 16, 8, 2048, 2048, 240), 0),     # and its global layer, at B = 1
+    ((2, 16, 1, 130, 130, 240), 0),       # ragged T in every head
+    ((2, 16, 1, 130, 130, 240), 64),
+    ((2, 4, 2, 200, 200, 8), 0),          # qwen2 smoke's head dim
+    ((2, 4, 2, 150, 170, 20), 0),         # padded to 24 columns
+    ((1, 4, 1, 77, 300, 20), 50),
+])
+def test_flash_wgmma_kernel_matches_plain(cuda, shape, window):
+    """The bf16 kernel (TMA + wgmma) at the serve shapes and at the edges of
+    its layout: a ragged last query tile must read zeros, not the next
+    head's rows; a head dim off the 8-column grid is padded by the
+    wrapper."""
+    _check_bf16_launch(*_bf16_inputs(cuda, shape, seed=sum(shape) + window),
+                       window)
+
+
+@pytest.mark.parametrize("which", [0, 1, 2])
+def test_flash_wgmma_kernel_takes_misaligned_inputs(cuda, which):
+    """A tensor whose storage starts off TMA's 16-byte grid is copied by the
+    wrapper, not read from the wrong address."""
+    shape = (1, 8, 4, 96, 96, 64)
+    qkv = _bf16_inputs(cuda, shape, seed=11 + which)
+    flat = torch.empty(qkv[which].numel() + 1, dtype=torch.bfloat16,
+                       device=cuda)
+    moved = flat[1:].view(qkv[which].shape)
+    moved.copy_(qkv[which])
+    assert moved.data_ptr() % 16 != 0
+    qkv[which] = moved
+    _check_bf16_launch(*qkv, window=0)
+
+
+def test_flash_phase_clocks_build(cuda, tmp_path):
+    """Built with -DFLASH_PHASE_CLOCKS (scripts/flash_ab.py --phases), the
+    bf16 kernel still matches the plain version and its consumer warps'
+    clocks add up to the phases it reports."""
+    import ctypes
+    import subprocess
+    from repro_torch.kernels import _build
+    lib_path = tmp_path / "flash_clocks.so"
+    subprocess.run([_build.nvcc(), *_build.NVCC_FLAGS, "-DFLASH_PHASE_CLOCKS",
+                    "-o", str(lib_path),
+                    str(_build.CSRC / "flash_attention.cu")], check=True,
+                   capture_output=True)
+    lib = ctypes.CDLL(str(lib_path))
+    launch = lib.flash_attention_launch
+    launch.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 9 + \
+        [ctypes.c_float, ctypes.c_void_p]
+    launch.restype = ctypes.c_int
+    read = lib.flash_attention_phase_clocks
+    read.argtypes = [ctypes.POINTER(ctypes.c_ulonglong)]
+    read.restype = ctypes.c_int
+    clocks = (ctypes.c_ulonglong * 8)()
+    assert read(clocks) == 0
+    q, k, v = _bf16_inputs(cuda, (1, 4, 2, 300, 300, 64), seed=7)
+    o = torch.empty_like(q)
+    assert launch(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), 1,
+                  1, 4, 2, 300, 300, 64, 1, 100, 64 ** -0.5,
+                  torch.cuda.current_stream().cuda_stream) == 0
+    torch.cuda.synchronize()
+    assert read(clocks) == 0
+    # the GEMMs and the softmax ran; the counters cleared on reading
+    assert clocks[2] > 0 and clocks[3] > 0 and clocks[5] > 0
+    assert read(clocks) == 0 and sum(clocks) == 0
+    torch.testing.assert_close(
+        o.float(), flash_attention_plain(q, k, v, causal=True,
+                                         window=100).float(),
+        rtol=0, atol=2e-2)
+
+
 @pytest.mark.parametrize("arch", ["gemma3_12b", "qwen2_7b"])
 def test_cache_free_serve_step_on_cuda(cuda, arch):
     """One flash launch per layer; the logits agree with the plain

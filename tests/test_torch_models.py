@@ -249,6 +249,31 @@ def test_flash_rejects_what_the_kernel_does_not_take():
         flash_attention(q, q, q, block_t=512, block_s=512)
 
 
+@pytest.mark.parametrize("d", [8, 20, 240])
+def test_flash_tma_ready_pads_head_dim_to_8(d):
+    """The bf16 kernel reads rows by TMA, 16 bytes apart: the wrapper pads
+    D with zero columns to a multiple of 8 and leaves the values alone."""
+    from repro_torch.kernels.flash_attention import _tma_ready
+    x = torch.from_numpy(np.random.default_rng(d).standard_normal(
+        (2, 3, 5, d)).astype(np.float32)).to(torch.bfloat16)
+    y = _tma_ready(x)
+    assert y.shape == (2, 3, 5, -(-d // 8) * 8) and y.is_contiguous()
+    assert torch.equal(y[..., :d], x) and not y[..., d:].any()
+    assert y.data_ptr() % 16 == 0
+    if d % 8 == 0:
+        assert y is x                       # nothing to copy
+
+
+def test_flash_tma_ready_copies_misaligned_storage():
+    x = torch.from_numpy(np.random.default_rng(4).standard_normal(
+        2 * 4 * 7 * 16 + 1).astype(np.float32)).to(torch.bfloat16)
+    view = x[1:].view(2, 4, 7, 16)
+    assert view.data_ptr() % 16 != 0
+    from repro_torch.kernels.flash_attention import _tma_ready
+    y = _tma_ready(view)
+    assert y.data_ptr() % 16 == 0 and torch.equal(y, view)
+
+
 # ------------------------------------------------------------ whole model --
 def _reference_model(arch, seed):
     jcfg = jax_smoke_config(arch)
