@@ -12,7 +12,7 @@ It prints one JSON line per phase, each with its wall seconds:
   started together); the card, its power limit, the torch/CUDA/nvcc
   versions and what ``ptxas`` reports per kernel.
 * ``kernels`` — each kernel against its plain PyTorch version on the card,
-  at the shapes the two configurations below give it plus edge cases,
+  at the shapes the configurations below give it plus edge cases,
   timed with CUDA events (median of 25 launches, L2 flushed before each).
   The flash rows also carry ``tflops`` (the mask's 4 D FLOPs per admitted
   (query, key) pair over the kernel's time) and ``bound_share``
@@ -39,6 +39,21 @@ It prints one JSON line per phase, each with its wall seconds:
   same: neither may launch the flash kernel, and ``serve_local``'s first
   token must equal (1)'s argmax wherever (1)'s top-1 margin exceeds twice
   the gap measured in (2).
+* ``serve_moe`` — the MoE serving slice: granite-moe-3b-a800m at full
+  width and depth (32 layers, d_model 1536, 24/8 heads of 64, 40 experts
+  top-8 of d_ff 512, vocab 49155), random bf16 weights, the same 4 x 2048
+  prompt tokens. (1) the cache-free flash step under identity placements:
+  32 flash launches, each output held against the plain version; (2) the
+  plain-attention step, whose logits gap to (1) is reported beside the
+  routed entries that moved between the two (the logits must agree within
+  atol 0.3 / rtol 0.05 only where none moved); (3) the expert loads of
+  every layer, which must sum to tokens x top-k; (4) one SkewShield placer
+  per layer updated from its loads (one expert per layer made 8x hotter if
+  no layer moves one); (5) the expert weights permuted on the card, then
+  step (1) under the new placements, whose logits must equal (1)'s; (6)
+  prefill through the KV cache and 16 timed greedy decode steps under the
+  new placements, neither launching the flash kernel. Also one MoE layer's
+  time split into its expert products and the rest.
 
 Then one ``{"kernels": [...]}`` line (per kernel and call site: launches on
 its path, max error, kernel/plain/library times and the bound), the card's
@@ -113,6 +128,30 @@ class ServeConfig:
     tokens: int = 16
     seed: int = 0
     #: the JAX package's serve-path tolerance (tests/test_arch_smoke.py)
+    atol: float = 0.3
+    rtol: float = 0.05
+
+
+@dataclasses.dataclass(frozen=True)
+class MoeServeConfig:
+    """The MoE serving deployment: granite-moe-3b-a800m at full width and
+    depth, 4 requests of 2048 prompt tokens, 16 greedy tokens each, one
+    SkewShield placer per layer sized as the JAX package's serving example
+    sizes them (4 expert shards, theta_max 0.15, an expert's three bf16
+    matrices as its migration bytes)."""
+
+    arch: str = "granite-moe-3b-a800m"
+    batch: int = 4
+    prompt: int = 2048
+    tokens: int = 16
+    seed: int = 0
+    shards: int = 4
+    theta_max: float = 0.15
+    #: when no layer's measured loads move an expert, one expert per layer
+    #: has its load multiplied by this, so the permutation always runs
+    hot_factor: float = 8.0
+    #: repetitions of the host-timed MoE breakdown (median)
+    reps: int = 5
     atol: float = 0.3
     rtol: float = 0.05
 
@@ -375,43 +414,57 @@ def check_flash_edges(torch, dev) -> float:
     (<= 1 passes)."""
     from repro_torch.kernels import flash_attention, flash_attention_plain
     worst = 0.0
-    for shape, window, dtype in (
-            ((1, 4, 4, 1, 256, 64), 0, torch.float32),     # T=1 decode
-            ((1, 16, 8, 1, 256, 240), 1024, torch.bfloat16),
-            ((1, 8, 2, 17, 250, 32), 0, torch.float32),    # ragged T and S
-            ((1, 16, 8, 17, 250, 240), 100, torch.bfloat16),
-            ((1, 4, 1, 96, 96, 32), 0, torch.float32),     # MQA
-            ((2, 16, 1, 130, 130, 240), 64, torch.bfloat16),
-            ((1, 2, 1, 100, 40, 16), 0, torch.float32),    # T > S: zero rows
-            ((2, 8, 2, 192, 192, 64), 16, torch.float32),  # f32 window
-            ((2, 4, 2, 150, 170, 20), 0, torch.bfloat16)):  # D padded to 24
+    f32, bf16 = torch.float32, torch.bfloat16
+    for shape, window, dtype, causal in (
+            ((1, 4, 4, 1, 256, 64), 0, f32, True),         # T=1 decode
+            ((1, 16, 8, 1, 256, 240), 1024, bf16, True),
+            ((1, 8, 2, 17, 250, 32), 0, f32, True),        # ragged T and S
+            ((1, 16, 8, 17, 250, 240), 100, bf16, True),
+            ((1, 4, 1, 96, 96, 32), 0, f32, True),         # MQA
+            ((2, 16, 1, 130, 130, 240), 64, bf16, True),
+            ((1, 2, 1, 100, 40, 16), 0, f32, True),        # T > S: zero rows
+            ((2, 8, 2, 192, 192, 64), 16, f32, True),      # f32 window
+            ((2, 4, 2, 150, 170, 20), 0, bf16, True),      # D padded to 24
+            ((1, 24, 8, 130, 130, 64), 0, bf16, True),     # granite-moe 3:1
+            ((1, 24, 8, 130, 130, 64), 0, f32, True),
+            ((1, 16, 1, 150, 150, 128), 0, bf16, True),    # granite-20b MQA
+            ((1, 16, 1, 150, 150, 128), 0, f32, True),
+            ((2, 8, 2, 192, 192, 64), 16, bf16, False),    # non-causal window
+            ((1, 4, 2, 130, 170, 32), 50, f32, False)):
         q, k, v = _flash_inputs(torch, shape, dtype, dev, seed=sum(shape))
-        got = flash_attention(q, k, v, causal=True, window=window)
-        want = flash_attention_plain(q, k, v, causal=True, window=window)
+        got = flash_attention(q, k, v, causal=causal, window=window)
+        want = flash_attention_plain(q, k, v, causal=causal, window=window)
         tol = FLASH_ATOL[str(dtype).split(".")[-1]]
         worst = max(worst, float((got.float() - want.float()).abs().max())
                     / tol)
     return worst
 
 
-def phase_flash(torch, scfg: ServeConfig, timer: Timer, dev) -> list:
-    """The flash kernel at the serve path's shapes, one row per masking
-    mode: against its plain version, with its time, the plain version's and
-    SDPA's (the one PyTorch call that computes the same function; the port
-    never calls it)."""
+def phase_flash(torch, scfg: ServeConfig, mcfg: "MoeServeConfig",
+                timer: Timer, dev) -> list:
+    """The flash kernel at the serve paths' shapes, one row per model and
+    masking mode (gemma3-12b's window and global layers, granite-moe's
+    global layer at D = 64): against its plain version, with its time, the
+    plain version's and SDPA's (the one PyTorch call that computes the same
+    function; the port never calls it)."""
     import torch.nn.functional as F
     from repro_torch.configs import get_config
     from repro_torch.kernels import flash_attention, flash_attention_plain
     edge = check_flash_edges(torch, dev)
     if edge > 1:
         raise AssertionError(f"flash edge cases: {edge:.3g} x tolerance")
-    cfg = get_config(scfg.arch)
-    b, hq, hkv, d = scfg.batch, cfg.n_heads, cfg.n_kv_heads, cfg.hd
-    t = s = scfg.prompt
-    q, k, v = _flash_inputs(torch, (b, hq, hkv, t, s, d), torch.bfloat16,
-                            dev, scfg.seed)
+    gemma, granite = get_config(scfg.arch), get_config(mcfg.arch)
+    cases = [(f"flash_attention[window={w}]" if w
+              else "flash_attention[global]", gemma, scfg, w)
+             for w in sorted(set(gemma.window_pattern), reverse=True)]
+    cases.append((f"flash_attention[global,D={granite.hd}]", granite, mcfg,
+                  0))
     rows = []
-    for window in sorted(set(cfg.window_pattern), reverse=True):
+    for name, cfg, sc, window in cases:
+        b, hq, hkv, d = sc.batch, cfg.n_heads, cfg.n_kv_heads, cfg.hd
+        t = s = sc.prompt
+        q, k, v = _flash_inputs(torch, (b, hq, hkv, t, s, d), torch.bfloat16,
+                                dev, sc.seed)
         got = flash_attention(q, k, v, causal=True, window=window)
         want = flash_attention_plain(q, k, v, causal=True, window=window)
         err = float((got.float() - want.float()).abs().max())
@@ -438,9 +491,8 @@ def phase_flash(torch, scfg: ServeConfig, timer: Timer, dev) -> list:
                                                      window=window))
         lower = bound(nbytes, flops, BF16_FLOPS_PER_S)
         rows.append({
-            "name": f"flash_attention[window={window}]" if window
-            else "flash_attention[global]",
-            "route": "cuda", "source": "src/repro_torch/csrc/flash_attention.cu",
+            "name": name, "route": "cuda",
+            "source": "src/repro_torch/csrc/flash_attention.cu",
             "replaces": "src/repro/kernels/flash_attention.py:31",
             "shape": {"b": b, "hq": hq, "hkv": hkv, "t": t, "s": s, "d": d,
                       "window": window, "dtype": "bfloat16",
@@ -508,7 +560,7 @@ def phase_stream(cfg: Config, device, sync) -> tuple:
     fleet = dev.backend.fleet
     spans = {"step_ms": [], "route_ms": []}
 
-    def timed(fn, key):
+    def span(fn, key):
         def wrapper(*a, **kw):
             sync()
             t0 = time.perf_counter()
@@ -518,8 +570,8 @@ def phase_stream(cfg: Config, device, sync) -> tuple:
             return out
         return wrapper
 
-    fleet.interval_step = timed(fleet.interval_step, "step_ms")
-    fleet.route_dense = timed(fleet.route_dense, "route_ms")
+    fleet.interval_step = span(fleet.interval_step, "step_ms")
+    fleet.route_dense = span(fleet.route_dense, "route_ms")
     record, interval_ms, ref_ms, gen_ms = [], [], [], []
     for i in range(cfg.intervals):
         t0 = time.perf_counter()
@@ -586,7 +638,129 @@ def phase_stats(cfg: Config, device, sync, record) -> dict:
             "stats_match_cpu": True}
 
 
-# -- phase 5: the serving slice --------------------------------------------------
+# -- phases 5 and 6: the serving slices -----------------------------------------
+
+class FlashSpy:
+    """While installed (``with``), stands in for the flash wrapper that
+    ``models.attention`` calls: counts each call by window and, while
+    ``check`` is set, holds its output against the plain version on the same
+    q, k, v. Tolerance: the JAX package's (2e-5 f32, 2e-2 bf16 at unit-scale
+    inputs) times v's rms, since each output row is a weighted mean of v's
+    rows, plus one ulp of the output's dtype."""
+
+    def __init__(self, torch):
+        from repro_torch.models import attention as attn_mod
+        self.torch = torch
+        self.attn_mod = attn_mod
+        self.wrapped = attn_mod.flash_attention
+        self.calls: dict = {}
+        self.check = False
+        self.errs: list = []
+        self.ratios: list = []
+
+    def __enter__(self):
+        self.attn_mod.flash_attention = self
+        return self
+
+    def __exit__(self, *exc):
+        self.attn_mod.flash_attention = self.wrapped
+
+    def __call__(self, q, k, v, causal=True, window=0):
+        from repro_torch.kernels import flash_attention_plain
+        self.calls[window] = self.calls.get(window, 0) + 1
+        o = self.wrapped(q, k, v, causal=causal, window=window)
+        if self.check:
+            want = flash_attention_plain(q, k, v, causal=causal,
+                                         window=window).float()
+            err = (o.float() - want).abs()
+            tol = (FLASH_ATOL[str(q.dtype).split(".")[-1]]
+                   * float(v.float().pow(2).mean().sqrt())
+                   + self.torch.finfo(q.dtype).eps * want.abs())
+            self.errs.append(float(err.max()))
+            self.ratios.append(float((err / tol).max()))
+        return o
+
+    def per_call(self) -> dict:
+        return {"calls": len(self.ratios), "max_abs_err": max(self.errs),
+                "worst_err_over_tol": max(self.ratios),
+                "tolerance": "FLASH_ATOL[dtype] * rms(v) + eps(dtype) * "
+                             "|plain|"}
+
+
+def timed(sync, fn):
+    """``fn()`` and its wall seconds, between two synchronisations."""
+    sync()
+    t0 = time.perf_counter()
+    res = fn()
+    sync()
+    return res, time.perf_counter() - t0
+
+
+def cache_free_steps(torch, cfg, params, batch, spy: FlashSpy, sync,
+                     *extra) -> tuple:
+    """(1) The cache-free step through the flash kernel, then (2) through
+    the plain, query-chunked attention, on ``params`` and ``batch``
+    (``extra`` goes to every step: an MoE model's placements). The first
+    flash call holds every kernel output against the plain version on the
+    model's own activations; the second, identical call of each step is
+    timed. Returns the two steps' float32 logits, their metrics and the
+    flash counter's rise in each."""
+    from repro_torch.kernels import flash_attention
+    from repro_torch.train.train_step import make_serve_step
+    n_tokens = batch["tokens"].numel()
+    out, launches = {}, {}
+    step = make_serve_step(cfg, use_flash=True)
+    spy.check = True
+    step(params, None, batch, 0, *extra)
+    spy.check = False
+    spy.calls.clear()
+    flash_attention.launches = 0
+    (flash_logits, _), secs = timed(
+        sync, lambda: step(params, None, batch, 0, *extra))
+    launches["cache_free_flash"] = flash_attention.launches
+    out["flash_calls"] = {str(w): n for w, n in sorted(spy.calls.items())}
+    out["cache_free_flash"] = {"seconds": secs,
+                               "prefill_tokens_per_s": n_tokens / secs}
+    out["flash_vs_plain_per_call"] = spy.per_call()
+    if out["flash_vs_plain_per_call"]["worst_err_over_tol"] > 1:
+        raise AssertionError(f"flash kernel off its plain version on the "
+                             f"model's activations: "
+                             f"{out['flash_vs_plain_per_call']}")
+    step = make_serve_step(cfg, use_flash=False)
+    step(params, None, batch, 0, *extra)
+    spy.calls.clear()
+    flash_attention.launches = 0
+    (plain_logits, _), secs = timed(
+        sync, lambda: step(params, None, batch, 0, *extra))
+    launches["cache_free_plain"] = flash_attention.launches
+    out["cache_free_plain"] = {"seconds": secs,
+                               "prefill_tokens_per_s": n_tokens / secs,
+                               "flash_calls": sum(spy.calls.values())}
+    a = flash_logits.float()
+    if a.shape != (batch["tokens"].shape[0], 1, cfg.vocab_padded) or \
+            not bool(torch.isfinite(a).all()):
+        raise AssertionError(f"cache-free logits malformed: {a.shape}")
+    return a, plain_logits.float(), out, launches
+
+
+def cached_greedy(torch, step, params, cache, batch, tokens: int, sync,
+                  *extra) -> tuple:
+    """Prefill ``batch`` through ``cache``, then ``tokens`` greedy decode
+    steps, each call timed. Returns the prefill's logits, its seconds, the
+    decode ms of each step and the greedy tokens (batch, tokens)."""
+    prompt = batch["tokens"].shape[1]
+    (logits, cache), prefill_s = timed(
+        sync, lambda: step(params, cache, batch, 0, *extra))
+    first = logits
+    decode_ms, greedy = [], []
+    for i in range(tokens):
+        nxt = torch.argmax(logits[:, -1], dim=-1)[:, None]
+        greedy.append(nxt[:, 0])
+        (logits, cache), secs = timed(sync, lambda: step(
+            params, cache, {"tokens": nxt}, prompt + i, *extra))
+        decode_ms.append(secs * 1e3)
+    return first, prefill_s, decode_ms, torch.stack(greedy, 1).cpu().numpy()
+
 
 def phase_serve(torch, cfg, scfg: ServeConfig, device, sync) -> dict:
     """The serve path of the model ``cfg`` on ``device``, at ``scfg``'s batch
@@ -594,44 +768,14 @@ def phase_serve(torch, cfg, scfg: ServeConfig, device, sync) -> dict:
     metrics; ``launches`` holds the flash counter's rise in each call and
     ``flash_calls`` the attention calls that reached the flash wrapper, by
     window. ``main`` checks the counters, which stay 0 on the CPU."""
-    from repro_torch.kernels import flash_attention, flash_attention_plain
+    from repro_torch.kernels import flash_attention
     from repro_torch.launch.serve import init_request, serve_local
-    from repro_torch.models import attention as attn_mod
     from repro_torch.models import init_cache, schema
     from repro_torch.models.transformer import model_schema
     from repro_torch.train.train_step import make_serve_step
 
     dev = torch.device(device)
     n_tokens = scfg.batch * scfg.prompt
-    calls: dict = {}
-    spy_state = {"check": False, "ratios": [], "errs": []}
-    ops_attention = attn_mod.flash_attention
-
-    def spy(q, k, v, causal=True, window=0):
-        """Counts each attention call that reaches the flash wrapper; while
-        ``check`` is set, holds its output against the plain version on the
-        same q, k, v. Tolerance: the JAX package's (2e-5 f32, 2e-2 bf16 at
-        unit-scale inputs) times v's rms, since each output row is a
-        weighted mean of v's rows, plus one ulp of the output's dtype."""
-        calls[window] = calls.get(window, 0) + 1
-        o = ops_attention(q, k, v, causal=causal, window=window)
-        if spy_state["check"]:
-            want = flash_attention_plain(q, k, v, causal=causal,
-                                         window=window).float()
-            err = (o.float() - want).abs()
-            tol = (FLASH_ATOL[str(q.dtype).split(".")[-1]]
-                   * float(v.float().pow(2).mean().sqrt())
-                   + torch.finfo(q.dtype).eps * want.abs())
-            spy_state["errs"].append(float(err.max()))
-            spy_state["ratios"].append(float((err / tol).max()))
-        return o
-
-    def timed(fn):
-        sync()
-        t0 = time.perf_counter()
-        res = fn()
-        sync()
-        return res, time.perf_counter() - t0
 
     out = {"arch": cfg.name, "n_layers": cfg.n_layers, "d_model": cfg.d_model,
            "n_heads": cfg.n_heads, "n_kv_heads": cfg.n_kv_heads,
@@ -642,52 +786,17 @@ def phase_serve(torch, cfg, scfg: ServeConfig, device, sync) -> dict:
            "params": schema.count_params(model_schema(cfg)),
            "kv_cache_bytes": 2 * 2 * cfg.n_layers * scfg.batch
            * (scfg.prompt + scfg.tokens) * cfg.n_kv_heads * cfg.hd}
-    launches = {}
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats()
     params, prompt = init_request(
         cfg, scfg.batch, scfg.prompt, dev,
         torch.Generator(device=dev).manual_seed(scfg.seed))
     batch = {"tokens": prompt}
-    attn_mod.flash_attention = spy
-    try:
-        # (1) the cache-free step through the flash kernel. The first call
-        # holds every kernel output against the plain version on the
-        # model's own activations; the second, identical, is timed.
-        step = make_serve_step(cfg, use_flash=True)
-        spy_state["check"] = True
-        step(params, None, batch, 0)
-        spy_state["check"] = False
-        calls.clear()
-        flash_attention.launches = 0
-        (flash_logits, _), secs = timed(lambda: step(params, None, batch, 0))
-        launches["cache_free_flash"] = flash_attention.launches
-        out["flash_calls"] = {str(w): n for w, n in sorted(calls.items())}
-        out["cache_free_flash"] = {"seconds": secs,
-                                   "prefill_tokens_per_s": n_tokens / secs}
-        out["flash_vs_plain_per_call"] = {
-            "calls": len(spy_state["ratios"]),
-            "max_abs_err": max(spy_state["errs"]),
-            "worst_err_over_tol": max(spy_state["ratios"]),
-            "tolerance": "FLASH_ATOL[dtype] * rms(v) + eps(dtype) * |plain|"}
-        if out["flash_vs_plain_per_call"]["worst_err_over_tol"] > 1:
-            raise AssertionError(f"flash kernel off its plain version on the "
-                                 f"model's activations: "
-                                 f"{out['flash_vs_plain_per_call']}")
-        # (2) the same step through the plain, query-chunked attention
-        step = make_serve_step(cfg, use_flash=False)
-        step(params, None, batch, 0)
-        calls.clear()
-        flash_attention.launches = 0
-        (plain_logits, _), secs = timed(lambda: step(params, None, batch, 0))
-        launches["cache_free_plain"] = flash_attention.launches
-        out["cache_free_plain"] = {"seconds": secs,
-                                   "prefill_tokens_per_s": n_tokens / secs,
-                                   "flash_calls": sum(calls.values())}
-        a, b = flash_logits.float(), plain_logits.float()
-        if a.shape != (scfg.batch, 1, cfg.vocab_padded) or \
-                not bool(torch.isfinite(a).all()):
-            raise AssertionError(f"cache-free logits malformed: {a.shape}")
+    with FlashSpy(torch) as spy:
+        # (1) and (2): the cache-free step through flash, then plain
+        a, b, steps, launches = cache_free_steps(torch, cfg, params, batch,
+                                                 spy, sync)
+        out.update(steps)
         # a secondary check: at this init the model amplifies rounding
         # through its layers, so the logits gap sits near the tolerance
         gap = (a - b).abs()
@@ -701,29 +810,21 @@ def phase_serve(torch, cfg, scfg: ServeConfig, device, sync) -> dict:
         # (3) prefill through the KV cache and greedy decode: first the
         # steps serve_local runs, each timed, on the same weights; then
         # serve_local itself, which makes its weights anew
-        calls.clear()
+        spy.calls.clear()
         flash_attention.launches = 0
-        step = make_serve_step(cfg)
         cache = init_cache(cfg, scfg.batch, scfg.prompt + scfg.tokens, dev)
-        (logits, cache), prefill_s = timed(
-            lambda: step(params, cache, batch, 0))
-        decode_ms = []
-        for i in range(scfg.tokens):
-            nxt = torch.argmax(logits[:, -1], dim=-1)[:, None]
-            (logits, cache), secs = timed(
-                lambda: step(params, cache, {"tokens": nxt}, scfg.prompt + i))
-            decode_ms.append(secs * 1e3)
-        del params, cache, logits
+        _, prefill_s, decode_ms, _ = cached_greedy(
+            torch, make_serve_step(cfg), params, cache, batch, scfg.tokens,
+            sync)
+        del params, cache
         if dev.type == "cuda":
             torch.cuda.empty_cache()
-        (first, greedy), secs = timed(lambda: serve_local(
+        (first, greedy), secs = timed(sync, lambda: serve_local(
             cfg, scfg.batch, scfg.prompt, scfg.tokens, device=dev,
             generator=torch.Generator(device=dev).manual_seed(scfg.seed)))
         launches["cached"] = flash_attention.launches
-    finally:
-        attn_mod.flash_attention = ops_attention
-    if calls:
-        raise AssertionError(f"the cached path reached flash: {calls}")
+    if spy.calls:
+        raise AssertionError(f"the cached path reached flash: {spy.calls}")
     if greedy.shape != (scfg.batch, scfg.tokens) or \
             not bool(torch.isfinite(first.float()).all()):
         raise AssertionError("serve_local output malformed")
@@ -755,6 +856,239 @@ def phase_serve(torch, cfg, scfg: ServeConfig, device, sync) -> dict:
     return out
 
 
+def moe_breakdown(torch, cfg, p, placement, batch: int, prompt: int,
+                  reps: int, sync, dev) -> dict:
+    """Where one MoE layer's time goes at the serve cell's shape, from host
+    timers around synchronised calls (median of ``reps``): the whole
+    ``moe`` call, and its three expert products with the SiLU alone on a
+    dispatch buffer of the same (E, cap, D) shape. The rest is the router,
+    the sort and rank, the dispatch gather and the combine."""
+    import torch.nn.functional as F
+    from repro_torch.models.moe import capacity_for, moe
+    g = torch.Generator(device=dev).manual_seed(7)
+    h = torch.randn(batch, prompt, cfg.d_model, generator=g,
+                    device=dev).to(torch.bfloat16)
+    cap = capacity_for(batch * prompt, cfg)
+    xs = torch.randn(cfg.moe_experts, cap, cfg.d_model, generator=g,
+                     device=dev).to(torch.bfloat16)
+
+    def experts():
+        up = torch.bmm(xs, p["w_up"])
+        return torch.bmm(F.silu(torch.bmm(xs, p["w_gate"])) * up, p["w_down"])
+
+    def median_ms(fn):
+        fn()
+        return statistics.median(timed(sync, fn)[1] * 1e3
+                                 for _ in range(reps))
+
+    with torch.inference_mode():
+        moe_ms = median_ms(lambda: moe(p, cfg, h, placement=placement))
+        expert_ms = median_ms(experts)
+    flops = 3 * 2 * cfg.moe_experts * cap * cfg.d_model * cfg.d_ff
+    return {"tokens": batch * prompt, "capacity": cap,
+            "moe_layer_ms": moe_ms, "expert_matmuls_ms": expert_ms,
+            "dispatch_router_combine_ms": moe_ms - expert_ms,
+            "expert_matmul_tflops": flops / expert_ms * 1e-9,
+            "expert_matmul_bound_ms": flops / BF16_FLOPS_PER_S * 1e3}
+
+
+def phase_serve_moe(torch, cfg, mcfg: MoeServeConfig, device, sync) -> dict:
+    """The MoE serve path of the model ``cfg`` on ``device`` at ``mcfg``'s
+    batch and lengths (a smoke config on the CPU rehearses it):
+
+    (1) the cache-free step with ``use_flash=True`` under the identity
+        placements, each flash output held against the plain version;
+    (2) the same step with ``use_flash=False`` (secondary: logits gap);
+    (3) ``forward(..., collect_moe=True)`` on the prompt: each layer's
+        expert loads sum to tokens x top-k; ``dropped`` per layer;
+    (4) one SkewShield placer per layer updated from its layer's measured
+        loads (logical, as the placement is the identity);
+    (5) ``permute_expert_params`` on the device, then step (1) under the new
+        placements: its logits must equal (1)'s within the serve
+        tolerance (a placement only relabels experts, so 0 is expected);
+    (6) prefill through the KV cache and greedy decode under the new
+        placements, each step timed.
+
+    ``launches`` holds the flash counter's rise in (1), (2) and (6)."""
+    from repro_torch.kernels import flash_attention
+    from repro_torch.launch.serve import init_request
+    from repro_torch.models import forward, init_cache, schema
+    from repro_torch.models import moe as moe_mod
+    from repro_torch.models.skewshield import (SkewShieldPlacer,
+                                               permute_expert_params,
+                                               placements_array)
+    from repro_torch.models.transformer import model_schema
+    from repro_torch.train.train_step import make_serve_step
+
+    dev = torch.device(device)
+    e, n_layers = cfg.moe_experts, cfg.n_layers
+    n_tokens = mcfg.batch * mcfg.prompt
+    cap = moe_mod.capacity_for(n_tokens, cfg)
+    bytes_per_expert = 3 * cfg.d_model * cfg.d_ff * 2
+    out = {"arch": cfg.name, "n_layers": n_layers, "d_model": cfg.d_model,
+           "n_heads": cfg.n_heads, "n_kv_heads": cfg.n_kv_heads,
+           "head_dim": cfg.hd, "d_ff": cfg.d_ff, "vocab": cfg.vocab,
+           "experts": e, "top_k": cfg.moe_topk, "batch": mcfg.batch,
+           "prompt": mcfg.prompt, "new_tokens": mcfg.tokens,
+           "params": schema.count_params(model_schema(cfg)),
+           "capacity": cap,
+           "dispatch_buffer_bytes": e * cap * cfg.d_model * 2,
+           "kv_cache_bytes": 2 * 2 * n_layers * mcfg.batch
+           * (mcfg.prompt + mcfg.tokens) * cfg.n_kv_heads * cfg.hd}
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    params, prompt = init_request(
+        cfg, mcfg.batch, mcfg.prompt, dev,
+        torch.Generator(device=dev).manual_seed(mcfg.seed))
+    batch = {"tokens": prompt}
+    placers = [SkewShieldPlacer(e, mcfg.shards, bytes_per_expert,
+                                theta_max=mcfg.theta_max)
+               for _ in range(n_layers)]
+    ident = placements_array(placers, dev)
+    with FlashSpy(torch) as spy:
+        # (1) and (2): the cache-free step through flash, then plain
+        a, b, steps, launches = cache_free_steps(torch, cfg, params, batch,
+                                                 spy, sync, ident)
+        out.update(steps)
+        step = make_serve_step(cfg, use_flash=True)
+
+        # (3) the expert loads of the prompt, by layer, through either
+        # attention path
+        moe_fn = moe_mod.moe
+
+        def collect(use_flash):
+            dropped = []
+
+            def counting_moe(*args, **kw):
+                res = moe_fn(*args, **kw)
+                if kw.get("return_stats"):
+                    dropped.append(res[1]["dropped"])
+                return res
+
+            moe_mod.moe = counting_moe
+            try:
+                with torch.inference_mode():
+                    _, _, loads = forward(params, cfg, batch,
+                                          placements=ident,
+                                          use_flash=use_flash,
+                                          collect_moe=True)
+            finally:
+                moe_mod.moe = moe_fn
+            loads = loads[:, 0].cpu().numpy()           # (n_layers, E)
+            if loads.shape != (n_layers, e) or \
+                    not (loads.sum(1) == n_tokens * cfg.moe_topk).all():
+                raise AssertionError(f"expert loads do not sum to tokens x "
+                                     f"top-k in every layer: {loads.sum(1)}")
+            return loads, [int(x) for x in dropped]
+
+        loads, dropped = collect(True)
+        plain_loads, _ = collect(False)
+        out["expert_loads"] = {
+            "sum_per_layer": loads.sum(1).tolist(),
+            "max_over_mean_per_layer": (loads.max(1) / loads.mean(1))
+            .tolist(),
+            "dropped_per_layer": dropped}
+        # a secondary check: the two attention paths round differently, and
+        # at a near-tie of the router a rounding sends a token to another
+        # expert; half the loads' L1 gap is the fewest entries that moved.
+        # The logits must agree within the serve tolerance where no entry
+        # moved; otherwise the gap is reported beside the moves.
+        moved = np.abs(loads - plain_loads).sum(1) / 2
+        gap = (a - b).abs()
+        out["flash_vs_plain"] = {
+            "max_abs_gap": float(gap.max()),
+            "max_gap_over_tol": float((gap / (mcfg.atol + mcfg.rtol
+                                              * b.abs())).max()),
+            "atol": mcfg.atol, "rtol": mcfg.rtol,
+            "routed_entries_moved_per_layer": moved.tolist(),
+            "first_layer_routed_differently":
+                int(np.flatnonzero(moved)[0]) if moved.any() else None}
+        if not moved.any():
+            torch.testing.assert_close(a, b, atol=mcfg.atol, rtol=mcfg.rtol)
+
+        # (4) SkewShield: one placer per layer, from its measured loads
+        updates = [pl.update(loads[g]) for g, pl in enumerate(placers)]
+        boosted = not any(len(u.moved_experts) for u in updates)
+        if boosted:
+            hot = loads.copy()
+            hot[np.arange(n_layers), np.arange(n_layers) % e] *= \
+                mcfg.hot_factor
+            updates = [pl.update(hot[g]) for g, pl in enumerate(placers)]
+        if not any(len(u.moved_experts) for u in updates):
+            raise AssertionError("no placer moved an expert")
+        out["skewshield"] = {
+            "boosted_one_expert_per_layer": boosted,
+            "hot_factor": mcfg.hot_factor if boosted else None,
+            "layers_moved": sum(bool(len(u.moved_experts)) for u in updates),
+            "per_layer": [{"theta_before": u.theta_before,
+                           "theta_after": u.theta_after,
+                           "moved_experts": u.moved_experts.tolist(),
+                           "migration_bytes": u.migration_bytes,
+                           "plan_ms": u.plan_time_s * 1e3}
+                          for u in updates]}
+
+        # (5) move the expert weights on the device, then step (1) again
+        moe_p = params["groups"]["sub0"]["moe"]
+        ident_np = np.arange(e, dtype=np.int32)
+
+        def permute():
+            slots = 0
+            for g, pl in enumerate(placers):
+                if (pl.placement == ident_np).all():
+                    continue
+                moved = permute_expert_params(
+                    {k: v[g] for k, v in moe_p.items()}, ident_np,
+                    pl.placement)
+                for name in ("w_gate", "w_up", "w_down"):
+                    moe_p[name][g].copy_(moved[name])
+                slots += int((pl.placement != ident_np).sum())
+            return slots
+
+        slots, secs = timed(sync, permute)
+        out["permute"] = {"slots_rewritten": slots, "seconds": secs,
+                          "bytes": slots * bytes_per_expert}
+        placed = placements_array(placers, dev)
+        spy.calls.clear()
+        flash_attention.launches = 0
+        (placed_logits, _), secs = timed(
+            sync, lambda: step(params, None, batch, 0, placed))
+        launches["cache_free_flash_placed"] = flash_attention.launches
+        delta = (placed_logits.float() - a).abs()
+        out["placement_invariance"] = {"max_abs_delta": float(delta.max()),
+                                       "seconds": secs}
+        torch.testing.assert_close(placed_logits.float(), a, atol=mcfg.atol,
+                                   rtol=mcfg.rtol)
+
+        # (6) prefill through the cache and greedy decode, new placements
+        spy.calls.clear()
+        flash_attention.launches = 0
+        cache = init_cache(cfg, mcfg.batch, mcfg.prompt + mcfg.tokens, dev)
+        first, prefill_s, decode_ms, greedy = cached_greedy(
+            torch, make_serve_step(cfg), params, cache, batch, mcfg.tokens,
+            sync, placed)
+        first = first.float()
+        launches["cached"] = flash_attention.launches
+        out["moe_breakdown"] = moe_breakdown(
+            torch, cfg, {k: v[0] for k, v in moe_p.items()}, placed[0],
+            mcfg.batch, mcfg.prompt, mcfg.reps, sync, dev)
+    if spy.calls:
+        raise AssertionError(f"the cached path reached flash: {spy.calls}")
+    if greedy.shape != (mcfg.batch, mcfg.tokens) or \
+            not bool(torch.isfinite(first).all()):
+        raise AssertionError("cached prefill or decode output malformed")
+    out["cached"] = {
+        "prefill_seconds": prefill_s,
+        "prefill_tokens_per_s": n_tokens / prefill_s,
+        "prefill_vs_flash_max_abs_gap": float((first - a).abs().max()),
+        "decode_ms_per_token": decode_ms,
+        "decode_ms_per_token_median": statistics.median(decode_ms),
+        "greedy_tokens": greedy.tolist()}
+    out["launches"] = launches
+    if dev.type == "cuda":
+        out["device_memory_peak_bytes"] = torch.cuda.max_memory_allocated()
+    return out
+
+
 def main() -> int:
     try:
         import torch
@@ -773,6 +1107,7 @@ def main() -> int:
 
     cfg = Config()
     scfg = ServeConfig()
+    mcfg = MoeServeConfig()
     t0 = time.perf_counter()
     emit({"phase": "build", **phase_build(torch),
           "seconds": time.perf_counter() - t0})
@@ -780,7 +1115,7 @@ def main() -> int:
     t0 = time.perf_counter()
     timer = Timer(torch, cfg.reps)
     rows = phase_kernels(torch, cfg, timer, torch.device("cuda")) + \
-        phase_flash(torch, scfg, timer, torch.device("cuda"))
+        phase_flash(torch, scfg, mcfg, timer, torch.device("cuda"))
     del timer
     emit({"phase": "kernels", "kernels": rows,
           "seconds": time.perf_counter() - t0})
@@ -833,13 +1168,33 @@ def main() -> int:
     emit({"phase": "serve", **serve, "card": nvidia_smi_line(),
           "seconds": time.perf_counter() - t0})
 
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    serve_moe = phase_serve_moe(torch, get_config(mcfg.arch), mcfg, "cuda",
+                                sync)
+    moe_launches = serve_moe["launches"]
+    if (moe_launches["cache_free_flash"] != serve_moe["n_layers"]
+            or moe_launches["cache_free_flash_placed"]
+            != serve_moe["n_layers"]
+            or serve_moe["flash_calls"] != {"0": serve_moe["n_layers"]}):
+        raise AssertionError(f"the MoE cache-free step did not launch the "
+                             f"flash kernel once per layer: {moe_launches}, "
+                             f"{serve_moe['flash_calls']}")
+    if moe_launches["cache_free_plain"] or moe_launches["cached"]:
+        raise AssertionError(f"a MoE path without flash launched it: "
+                             f"{moe_launches}")
+    emit({"phase": "serve_moe", **serve_moe, "card": nvidia_smi_line(),
+          "seconds": time.perf_counter() - t0})
+
     launches = {"routing_lookup[dense]": main_launches["route_keys"],
                 "routing_lookup[per_tuple]": stats_launches["route_keys"],
                 "key_stats[zipf_tuples]": stats_launches["key_stats"],
                 "key_stats[stats_path]": stats_launches["key_stats"],
                 **{f"flash_attention[window={w}]" if w != "0"
                    else "flash_attention[global]": n
-                   for w, n in serve["flash_calls"].items()}}
+                   for w, n in serve["flash_calls"].items()},
+                f"flash_attention[global,D={serve_moe['head_dim']}]":
+                    moe_launches["cache_free_flash"]}
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     emit({"kernels": [{k: {**row, "launches": launches[row["name"]]}[k]

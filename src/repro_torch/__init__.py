@@ -7,10 +7,12 @@ relabel-only migration. The two TPU kernels on that path — the routing
 lookup and the per-key statistics histogram — are hand-written CUDA C++
 (``csrc/``), each beside its plain PyTorch version.
 
-The serving slice of the model substrate sits beside it: dense attention
-LMs (:mod:`.models`, :mod:`.configs`), the serve step (:mod:`.train`) and
-the local serving launcher (:mod:`.launch.serve`), with the flash-attention
-TPU kernel rewritten as CUDA C++ too.
+The serving slice of the model substrate sits beside it: attention LMs
+with dense or MoE MLPs (:mod:`.models`, :mod:`.configs`), SkewShield expert
+placement (:mod:`.models.skewshield`), the serve step (:mod:`.train`), the
+local serving launcher (:mod:`.launch.serve`) and the session-routing
+serving engine (:mod:`.serve`), with the flash-attention TPU kernel
+rewritten as CUDA C++ too.
 
 This package imports torch, numpy and the standard library only; it keeps
 its own copy of the host control plane and of the model code.

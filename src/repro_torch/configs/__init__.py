@@ -1,5 +1,6 @@
 """Architecture registry of the port: the JAX package's ``configs`` for the
-archs whose layer kinds the port has (dense attention + SwiGLU MLP).
+archs whose layer kinds the port has (attention followed by a dense SwiGLU
+or an MoE MLP).
 
 ``get_config`` gives the exact public config, ``smoke_config`` the reduced
 variant of the same family that the CPU tests and the smoke CLI run. The
@@ -9,16 +10,13 @@ raise ``NotImplementedError`` naming the ROADMAP item that brings them.
 
 import importlib
 
-ARCHS = ["gemma3_12b", "qwen2_7b"]
+ARCHS = ["gemma3_12b", "qwen2_7b", "granite_moe_3b_a800m", "dbrx_132b",
+         "granite_8b", "granite_20b"]
 
 #: the JAX package's other archs, and the ROADMAP item each waits for
 NOT_PORTED = {
-    "jamba_1_5_large_398b": "Queue A item 4: mamba layers and MoE",
+    "jamba_1_5_large_398b": "Queue A item 4: mamba layers",
     "internvl2_1b": "Queue A item 4: the vision prefix",
-    "dbrx_132b": "Queue A item 4: MoE with SkewShield",
-    "granite_moe_3b_a800m": "Queue A item 4: MoE with SkewShield",
-    "granite_20b": "Queue A item 4: the other configs",
-    "granite_8b": "Queue A item 4: the other configs",
     "xlstm_125m": "Queue A item 4: sLSTM and mLSTM layers",
     "whisper_large_v3": "Queue A item 4: the whisper encoder",
 }

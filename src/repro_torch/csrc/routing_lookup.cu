@@ -17,11 +17,13 @@
 // block stages it in shared memory (32 KB at 4096 slots), and each thread
 // binary-searches it for its key: O(log A) shared-memory reads instead of A
 // compares. Blocks walk the key array in a grid-stride loop, so only a few
-// blocks per SM stage the table. Empty slots hold key -1 and sort first; a
-// key is a tuple id >= 0, so it never matches one (a negative key routes by
-// its hash). The wrapper refuses duplicate table keys, so at most one slot
-// matches. The mix is native uint32 arithmetic, bit-identical to the host
-// planner's Hash32.
+// blocks per SM stage the table. Empty slots hold key -1 and dest 0 and sort
+// first, in their original order (the wrapper sorts stably). The search finds
+// the first slot whose key is >= k, so key -1 takes the first empty slot's
+// dest, as the JAX package's ref.routing_lookup does; a key below -1 matches
+// nothing and routes by its hash. The wrapper refuses duplicate non-empty
+// table keys, so at most one of those matches. The mix is native uint32
+// arithmetic, bit-identical to the host planner's Hash32.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -57,14 +59,12 @@ __global__ void routing_lookup_kernel(const int32_t* __restrict__ keys,
     const int32_t k = keys[i];
     int32_t d = static_cast<int32_t>(fmix32(static_cast<uint32_t>(k) ^ seed) %
                                      n_dest);
-    if (k >= 0) {
-      int lo = 0, hi = a;  // first slot with key >= k
-      while (lo < hi) {
-        const int mid = (lo + hi) >> 1;
-        if (sk[mid] < k) lo = mid + 1; else hi = mid;
-      }
-      if (lo < a && sk[lo] == k) d = sd[lo];
+    int lo = 0, hi = a;  // first slot with key >= k
+    while (lo < hi) {
+      const int mid = (lo + hi) >> 1;
+      if (sk[mid] < k) lo = mid + 1; else hi = mid;
     }
+    if (lo < a && sk[lo] == k) d = sd[lo];
     out[i] = d;
   }
 }

@@ -15,8 +15,12 @@ binary-searches it. Duplicate non-empty table keys are refused with
 kernel returns the largest dest, its ``ref.routing_lookup`` the first slot),
 and ``Assignment.table_arrays`` never produces any.
 
-Keys are tuple ids in ``[0, 2**31)``; a negative key never matches a table
-slot (slot key -1 marks an empty slot) and routes by its hash.
+Keys are tuple ids in ``[0, 2**31)``. As in the JAX package's
+``ref.routing_lookup``, a key equal to a table key takes the dest of the
+first such slot, and key -1 is no exception: it matches an empty slot
+(key -1, dest 0) and takes that slot's dest. The table is sorted stably,
+so among the empty slots the lower-bound search finds the one that came
+first. A key below -1 matches no slot and routes by its hash.
 """
 
 from __future__ import annotations
@@ -79,7 +83,7 @@ class RoutingTable:
         if table_keys.numel() > MAX_TABLE:
             raise ValueError(f"routing table of {table_keys.numel()} slots "
                              f"exceeds MAX_TABLE={MAX_TABLE}")
-        keys, order = torch.sort(table_keys)
+        keys, order = torch.sort(table_keys, stable=True)
         dup = (keys[1:] == keys[:-1]) & (keys[1:] >= 0)
         if bool(dup.any()):
             k = int(keys[1:][dup][0])
@@ -112,7 +116,7 @@ def route_plain(keys: torch.Tensor, table: RoutingTable, n_dest: int,
     if a == 0:
         return base
     pos = torch.searchsorted(table.keys, keys).clamp_(max=a - 1)
-    hit = (table.keys[pos] == keys) & (keys >= 0)
+    hit = table.keys[pos] == keys
     return torch.where(hit, table.dests[pos], base)
 
 

@@ -1,10 +1,13 @@
 """Serving launcher — the local mode of the JAX package's
 ``launch/serve.py``: random weights, a random prompt, prefill through the KV
-cache and greedy decoding, on one device.
+cache and greedy decoding, on one device; an MoE arch gets one SkewShield
+placer per layer, and every step takes their placements.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma3-12b
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-7b \\
       --device cpu --tokens 8
+  PYTHONPATH=src python -m repro_torch.launch.serve \\
+      --arch granite-moe-3b-a800m --device cpu
 
 The CLI runs the arch's smoke config, as the JAX launcher does; callers
 with a card pass a full config to :func:`serve_local`. The JAX launcher's
@@ -14,7 +17,7 @@ with a card pass a full config to :func:`serve_local`. The JAX launcher's
 from __future__ import annotations
 
 import argparse
-from typing import Optional, Tuple
+from typing import List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -22,6 +25,7 @@ import torch
 from ..configs import smoke_config
 from ..models import init_cache, model_schema, schema
 from ..models.config import ModelConfig
+from ..models.skewshield import SkewShieldPlacer, placements_array
 from ..streams.device import resolve_device
 from ..train.train_step import make_serve_step
 
@@ -36,13 +40,29 @@ def init_request(cfg: ModelConfig, batch: int, prompt: int, device,
     return params, tokens
 
 
+def moe_placers(cfg: ModelConfig) -> List[SkewShieldPlacer]:
+    """One placer per layer for an MoE arch, as the JAX launcher builds
+    them: up to 4 shards that divide the experts evenly (at least 2), and
+    1e6 bytes an expert. Empty for a dense arch."""
+    if not cfg.moe_experts:
+        return []
+    shards = max(2, min(4, cfg.moe_experts))
+    while cfg.moe_experts % shards:
+        shards -= 1
+    return [SkewShieldPlacer(cfg.moe_experts, shards, 1e6)
+            for _ in range(cfg.n_layers)]
+
+
 def serve_local(cfg: ModelConfig, batch: int = 2, prompt: int = 16,
                 tokens: int = 16, device=None,
                 generator: Optional[torch.Generator] = None
                 ) -> Tuple[torch.Tensor, np.ndarray]:
     """Prefill a random ``batch`` x ``prompt`` request through the KV cache,
     then decode ``tokens`` greedy tokens, one step each. Attention with a
-    cache takes the plain path, so this never reaches the flash kernel.
+    cache takes the plain path, so this never reaches the flash kernel. An
+    MoE arch runs every step under the placements of
+    :func:`moe_placers` (the identity, as the JAX launcher never updates
+    them).
 
     Weights and prompt come from :func:`init_request` with ``generator``
     (seed 0 on the device when None). ``device=None`` means the CUDA card
@@ -54,15 +74,19 @@ def serve_local(cfg: ModelConfig, batch: int = 2, prompt: int = 16,
         generator = torch.Generator(device=dev).manual_seed(0)
     params, prompt_tokens = init_request(cfg, batch, prompt, dev, generator)
     serve_step = make_serve_step(cfg)
+    placers = moe_placers(cfg)
+    placements = placements_array(placers, dev) if placers else None
     cache = init_cache(cfg, batch, prompt + tokens, dev)
-    logits, cache = serve_step(params, cache, {"tokens": prompt_tokens}, 0)
+    logits, cache = serve_step(params, cache, {"tokens": prompt_tokens}, 0,
+                               placements)
     first = logits
     idx = prompt
     outs = []
     for _ in range(tokens):
         nxt = torch.argmax(logits[:, -1], dim=-1)[:, None]
         outs.append(nxt[:, 0].cpu().numpy())
-        logits, cache = serve_step(params, cache, {"tokens": nxt}, idx)
+        logits, cache = serve_step(params, cache, {"tokens": nxt}, idx,
+                                   placements)
         idx += 1
     greedy = np.stack(outs, 1) if outs else np.zeros((batch, 0), np.int64)
     return first, greedy

@@ -1,5 +1,6 @@
-"""Model substrate of the port: dense attention LMs (the JAX package's
-``repro.models``, for the layer kinds ported so far)."""
+"""Model substrate of the port: attention LMs with dense or MoE MLPs and
+SkewShield expert placement (the JAX package's ``repro.models``, for the
+layer kinds ported so far)."""
 
 from . import schema
 from .config import SHAPES, ModelConfig, ShapeConfig

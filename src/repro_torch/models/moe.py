@@ -1,0 +1,145 @@
+"""Mixture-of-Experts layer with SkewShield expert placement — the JAX
+package's ``models/moe.py``.
+
+Dispatch is sort-based with a static capacity: gathers and batched matmuls,
+no dynamic shapes, so nothing in it waits for the card.
+
+  1. router top-k over logical experts (the router product in float32);
+  2. **SkewShield**: logical expert ids go through a ``placement`` vector,
+     the mixed routing function F(e) of paper Eq. 1 as an (E,) array;
+  3. the flat (token, slot) entries are sorted stably by physical expert and
+     each entry's rank in its expert is its sorted position minus the
+     expert's first position (a left-side ``searchsorted``); entries ranked
+     at or past the capacity are dropped;
+  4. tokens are gathered into an (E, cap, D) buffer, the expert FFNs run as
+     batched matmuls, and each (token, slot) entry gathers its expert's
+     output back and is combined with its gate weight.
+
+Dispatch is one group. The JAX package splits it into one group per data
+shard only when ``REPRO_PERF_MOE_GROUPED`` is set and a mesh is installed
+(``_dispatch_groups``); that XLA sharding path is not ported, by decision.
+
+**Overflow, as the reference computes it on the CPU.** The JAX package
+writes every entry of an expert into the slot ``min(rank, cap - 1)`` of its
+dispatch buffer, dropped entries with the zero row's index. In an expert
+whose count exceeds ``cap`` the dropped entries therefore land on the slot
+of the entry ranked ``cap - 1``; the last write wins, so that entry reads
+the zero row and gets 0 from its expert: such an expert keeps ``cap - 1``
+tokens. A write with duplicate indices has no fixed winner on CUDA, so the
+port computes the same result without one: it builds the dispatch buffer
+by a gather and masks the entry ranked ``cap - 1`` out wherever the
+expert's count exceeds ``cap``. ``dropped`` stays as the reference counts
+it (entries ranked ``>= cap``), which does not count that extra drop.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+
+from .config import ModelConfig
+from .schema import ParamSpec
+
+
+def moe_schema(cfg: ModelConfig, stack=()):
+    st = tuple(["stack"] * len(stack))
+    d, f, e = cfg.d_model, cfg.d_ff, cfg.moe_experts
+    return {
+        "router": ParamSpec(stack + (d, e), st + ("embed", None),
+                            dtype=torch.float32),
+        "w_gate": ParamSpec(stack + (e, d, f), st + ("expert", "embed", "mlp")),
+        "w_up": ParamSpec(stack + (e, d, f), st + ("expert", "embed", "mlp")),
+        "w_down": ParamSpec(stack + (e, f, d), st + ("expert", "mlp", "embed")),
+    }
+
+
+def capacity_for(n_tokens: int, cfg: ModelConfig) -> int:
+    cap = int(math.ceil(n_tokens * cfg.moe_topk * cfg.moe_capacity_factor
+                        / cfg.moe_experts))
+    return max(8, ((cap + 7) // 8) * 8)
+
+
+def _served(rank: torch.Tensor, count: torch.Tensor, cap: int
+            ) -> torch.Tensor:
+    """Which entries reach their expert: ranked below ``cap``, less the one
+    ranked ``cap - 1`` in an expert whose ``count`` exceeds ``cap`` (see the
+    module docstring)."""
+    return (rank < cap) & ~((rank == cap - 1) & (count > cap))
+
+
+def moe(p, cfg: ModelConfig, x: torch.Tensor,
+        placement: Optional[torch.Tensor] = None,
+        return_stats: bool = False):
+    """x: (B, T, D) -> (B, T, D) [, stats].
+
+    placement: (E,) integer tensor on ``x``'s device, the physical slot of
+    each logical expert (SkewShield F(e); None = the identity). The expert
+    weights are stored by physical slot. With ``return_stats`` also returns
+    ``{"expert_load": (E,) float32 entries per physical slot, "dropped":
+    entries ranked >= cap}``.
+    """
+    b, t, d = x.shape
+    e, k = cfg.moe_experts, cfg.moe_topk
+    n = b * t
+    nk = n * k
+    cap = capacity_for(n, cfg)
+    dev = x.device
+    xf = x.reshape(n, d)
+
+    gates = xf.to(torch.float32) @ p["router"]               # (N, E)
+    top_vals, top_idx = torch.topk(gates, k, dim=-1)         # (N, k)
+    weights = torch.softmax(top_vals, dim=-1)
+
+    flat_e = top_idx.reshape(nk)
+    if placement is not None:
+        flat_e = placement.to(device=dev, dtype=torch.long)[flat_e]
+
+    order = torch.argsort(flat_e, stable=True)
+    sorted_e = flat_e[order]
+    experts = torch.arange(e, device=dev)
+    starts = torch.searchsorted(sorted_e, experts)
+    count = torch.searchsorted(sorted_e, experts, right=True) - starts
+    rank_sorted = torch.arange(nk, device=dev) - starts[sorted_e]
+
+    # dispatch: slot r of expert x holds the entry at sorted position
+    # starts[x] + r, or the zero row (index n) where no entry is served
+    slot_rank = torch.arange(cap, device=dev)
+    pos = (starts[:, None] + slot_rank).clamp_(max=nk - 1)   # (E, cap)
+    served = (slot_rank < count[:, None]) & \
+        _served(slot_rank, count[:, None], cap)
+    dispatch = torch.where(served, order[pos] // k, n)
+    x_pad = torch.cat([xf, xf.new_zeros(1, d)])
+    xs = x_pad[dispatch]                                     # (E, cap, D)
+
+    gate_h = F.silu(torch.bmm(xs, p["w_gate"]))
+    up_h = torch.bmm(xs, p["w_up"])
+    ys = torch.bmm(gate_h * up_h, p["w_down"])               # (E, cap, D)
+
+    # combine: each (token, slot) entry gathers its expert's output back
+    rank_of = torch.empty_like(rank_sorted)
+    rank_of[order] = rank_sorted                 # a permutation: no repeats
+    src = flat_e * cap + rank_of.clamp(max=cap - 1)
+    y_tok = ys.reshape(e * cap, d)[src]
+    y_tok = torch.where(_served(rank_of, count[flat_e], cap)[:, None], y_tok,
+                        y_tok.new_zeros(()))
+    out = (y_tok.reshape(n, k, d) * weights[..., None].to(y_tok.dtype)
+           ).sum(dim=1).reshape(b, t, d)
+    if return_stats:
+        return out, {"expert_load": count.to(torch.float32),
+                     "dropped": (rank_sorted >= cap).sum()}
+    return out
+
+
+def aux_load_balance_loss(gates_softmax: torch.Tensor, top_idx: torch.Tensor,
+                          e: int) -> torch.Tensor:
+    """Switch-style auxiliary loss (the *long-term* fix the paper contrasts
+    with; kept for completeness/ablation)."""
+    me = torch.mean(gates_softmax, dim=0)
+    idx = top_idx.reshape(-1).to(torch.long)
+    ce = torch.zeros(e, dtype=torch.float32, device=idx.device).index_add_(
+        0, idx, torch.ones(idx.shape, dtype=torch.float32, device=idx.device))
+    ce = ce / torch.clamp(ce.sum(), min=1.0)
+    return e * torch.sum(me * ce)

@@ -1,5 +1,6 @@
 """Decoder-only LM assembler — the JAX package's ``models/transformer.py``
-for the layer kinds the port has: attention followed by a dense SwiGLU MLP.
+for the layer kinds the port has: attention followed by a dense SwiGLU MLP
+or an MoE MLP (``models/moe.py``, with SkewShield expert placements).
 
 Layers are grouped into *superblocks* of ``cfg.layer_pattern`` length with
 stacked parameters (leading ``n_groups`` dim), as in the JAX package, so a
@@ -8,8 +9,8 @@ groups is a Python loop here. The same forward serves a cache-free step
 (cache=None), prefill (cache + index 0, T = prompt) and decode (cache +
 index t, T = 1).
 
-mamba, sLSTM and mLSTM layers, MoE MLPs, the whisper encoder and the vision
-prefix raise ``NotImplementedError`` until their slices.
+mamba, sLSTM and mLSTM layers, the whisper encoder and the vision prefix
+raise ``NotImplementedError`` until their slices.
 """
 
 from __future__ import annotations
@@ -20,6 +21,7 @@ import torch
 
 from . import attention as attn_mod
 from . import layers
+from . import moe as moe_mod
 from .config import ModelConfig
 from .schema import ParamSpec, tree_map
 
@@ -28,8 +30,6 @@ PyTree = Any
 
 def _check_ported(cfg: ModelConfig) -> None:
     missing = sorted({k for k in cfg.layer_pattern if k != "attn"})
-    if cfg.moe_experts:
-        missing.append("moe")
     if cfg.encoder_layers or cfg.frontend != "none":
         missing.append(f"frontend {cfg.frontend}")
     if missing:
@@ -39,13 +39,16 @@ def _check_ported(cfg: ModelConfig) -> None:
 
 
 # ------------------------------------------------------------------ schema --
-def _sub_schema(cfg: ModelConfig, n_groups: int):
+def _sub_schema(cfg: ModelConfig, j: int, n_groups: int):
     stack = (n_groups,)
     sch: Dict[str, Any] = {"norm": layers.rmsnorm_schema(cfg.d_model, stack),
                            "attn": attn_mod.attn_schema(cfg, stack)}
     if cfg.d_ff > 0:
         sch["mlp_norm"] = layers.rmsnorm_schema(cfg.d_model, stack)
-        sch["mlp"] = layers.mlp_schema(cfg, stack)
+        if cfg.layer_is_moe(j):
+            sch["moe"] = moe_mod.moe_schema(cfg, stack)
+        else:
+            sch["mlp"] = layers.mlp_schema(cfg, stack)
     return sch
 
 
@@ -57,7 +60,7 @@ def model_schema(cfg: ModelConfig) -> PyTree:
     sch: Dict[str, Any] = {
         "embed": layers.embed_schema(cfg),
         "final_norm": layers.rmsnorm_schema(cfg.d_model),
-        "groups": {f"sub{j}": _sub_schema(cfg, n_groups)
+        "groups": {f"sub{j}": _sub_schema(cfg, j, n_groups)
                    for j in range(period)},
     }
     if not cfg.tie_embeddings:
@@ -87,50 +90,83 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int,
 
 # ----------------------------------------------------------------- forward --
 def _apply_sub(p, cfg: ModelConfig, j: int, x, positions, cache, cache_index,
-               use_flash: bool):
+               placement, use_flash: bool, collect_moe: bool):
+    """One sub-layer; returns (x, the expert loads or None)."""
     h = layers.rmsnorm(p["norm"], x, cfg.norm_eps)
-    out, new_cache = attn_mod.attn(
+    out, _ = attn_mod.attn(
         p["attn"], cfg, h, positions, window=cfg.layer_window(j),
         causal=True, cache=cache, cache_index=cache_index,
         use_flash=use_flash)
     x = x + out
+    moe_load = None
     if "mlp" in p:
         h = layers.rmsnorm(p["mlp_norm"], x, cfg.norm_eps)
         x = x + layers.mlp(p["mlp"], h)
-    return x, new_cache
+    elif "moe" in p:
+        h = layers.rmsnorm(p["mlp_norm"], x, cfg.norm_eps)
+        if collect_moe:
+            out, stats = moe_mod.moe(p["moe"], cfg, h, placement=placement,
+                                     return_stats=True)
+            moe_load = stats["expert_load"]
+        else:
+            out = moe_mod.moe(p["moe"], cfg, h, placement=placement)
+        x = x + out
+    return x, moe_load
 
 
 def decoder_apply(params, cfg: ModelConfig, x, positions,
                   cache: Optional[PyTree] = None, cache_index: int = 0,
-                  use_flash: bool = False):
-    """x: (B, T, D) -> (x, cache). The cache, when given, is updated in
-    place and returned; without one the second value is None."""
+                  placements: Optional[torch.Tensor] = None,
+                  use_flash: bool = False, collect_moe: bool = False):
+    """x: (B, T, D) -> (x, cache), or (x, cache, loads) with
+    ``collect_moe``. The cache, when given, is updated in place and
+    returned; without one the second value is None.
+
+    placements: (n_layers, E) physical slot of each logical expert, per
+    layer (None = the identity). ``loads`` stacks each MoE sub-layer's
+    ``expert_load`` (by physical slot) as (n_groups, MoE sub-layers per
+    superblock, E), as the JAX package's scan does; None without MoE."""
     _check_ported(cfg)
     period = cfg.pattern_period
     n_groups = cfg.n_layers // period
+    if placements is not None:
+        placements = placements.reshape(n_groups, period, -1)
+    group_loads = []
     for g in range(n_groups):
         gp = tree_map(lambda a: a[g], params["groups"])
+        loads = []
         for j in range(period):
             sub_cache = (tree_map(lambda a: a[g], cache[f"sub{j}"])
                          if cache is not None else None)
-            x, _ = _apply_sub(gp[f"sub{j}"], cfg, j, x, positions,
-                              sub_cache, cache_index, use_flash)
+            place = placements[g, j] if placements is not None else None
+            x, load = _apply_sub(gp[f"sub{j}"], cfg, j, x, positions,
+                                 sub_cache, cache_index, place, use_flash,
+                                 collect_moe)
+            if load is not None:
+                loads.append(load)
+        if loads:
+            group_loads.append(torch.stack(loads))
+    if collect_moe:
+        return x, cache, (torch.stack(group_loads) if group_loads else None)
     return x, cache
 
 
 def forward(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
             cache: Optional[PyTree] = None, cache_index: int = 0,
-            use_flash: bool = False):
-    """batch: {"tokens": (B, T)}. Returns (hidden (B, T, D), cache)."""
+            placements: Optional[torch.Tensor] = None,
+            use_flash: bool = False, collect_moe: bool = False):
+    """batch: {"tokens": (B, T)}. Returns (hidden (B, T, D), cache), or
+    (hidden, cache, loads) with ``collect_moe`` (see :func:`decoder_apply`
+    for ``placements`` and ``loads``)."""
     tokens = batch["tokens"]
     x = layers.embed(params["embed"], tokens).to(torch.bfloat16)
     t = x.shape[1]
     positions = cache_index + torch.arange(t, device=x.device)
-    x, new_cache = decoder_apply(params, cfg, x, positions, cache=cache,
-                                 cache_index=cache_index,
-                                 use_flash=use_flash)
+    x, new_cache, *loads = decoder_apply(
+        params, cfg, x, positions, cache=cache, cache_index=cache_index,
+        placements=placements, use_flash=use_flash, collect_moe=collect_moe)
     x = layers.rmsnorm(params["final_norm"], x, cfg.norm_eps)
-    return x, new_cache
+    return (x, new_cache, *loads)
 
 
 def logits_from_hidden(params, cfg: ModelConfig, hidden: torch.Tensor

@@ -13,16 +13,19 @@ from ..models.config import ModelConfig
 
 
 def make_serve_step(cfg: ModelConfig, use_flash: bool = False):
-    """Returns serve_step(params, cache, batch, index) -> (logits (B, 1, V),
-    cache): the next-token logits at the last position. T = prompt for
-    prefill, 1 for decode; with ``cache=None`` a cache-free step over the
-    whole prompt, where ``use_flash`` sends attention to the flash kernel.
-    The cache is updated in place and returned."""
+    """Returns serve_step(params, cache, batch, index, placements=None) ->
+    (logits (B, 1, V), cache): the next-token logits at the last position.
+    T = prompt for prefill, 1 for decode; with ``cache=None`` a cache-free
+    step over the whole prompt, where ``use_flash`` sends attention to the
+    flash kernel. ``placements`` (n_layers, E) places an MoE model's
+    experts (``models.skewshield.placements_array``). The cache is updated
+    in place and returned."""
 
     @torch.inference_mode()
-    def serve_step(params, cache, batch, index):
+    def serve_step(params, cache, batch, index, placements=None):
         hidden, new_cache = forward(params, cfg, batch, cache=cache,
-                                    cache_index=index, use_flash=use_flash)
+                                    cache_index=index, placements=placements,
+                                    use_flash=use_flash)
         logits = logits_from_hidden(params, cfg, hidden[:, -1:, :])
         return logits, new_cache
 

@@ -49,6 +49,21 @@ def test_routing_kernel_matches_plain(cuda, n, a):
                                rtol=0, atol=0)
 
 
+def test_routing_kernel_routes_key_minus_one_to_the_first_empty_slot(cuda):
+    """Keys -1 and -2 against a table with empty slots: -1 takes the first
+    empty slot's dest (0), -2 routes by its hash, as the JAX package's
+    ``ref.routing_lookup`` gives ([0, 8, 3, 6])."""
+    keys = torch.tensor([-1, -2, 5, 7], dtype=torch.int32, device=cuda)
+    table = RoutingTable.from_arrays(np.array([5, -1, -1, -1], np.int32),
+                                     np.array([3, 0, 0, 0], np.int32), cuda)
+    before = route_keys.launches
+    got = route_keys(keys, table, 13, seed=5)
+    torch.cuda.synchronize()
+    assert route_keys.launches == before + 1
+    assert got.cpu().tolist() == [0, 8, 3, 6]
+    assert route_plain(keys, table, 13, seed=5).cpu().tolist() == [0, 8, 3, 6]
+
+
 @pytest.mark.parametrize("n,num_keys", [(1, 1), (5000, 33), (1_000_000,
                                                              1 << 20)])
 def test_key_stats_kernel_matches_plain(cuda, n, num_keys):
@@ -155,6 +170,31 @@ def test_flash_wgmma_kernel_matches_plain(cuda, shape, window):
     wrapper."""
     _check_bf16_launch(*_bf16_inputs(cuda, shape, seed=sum(shape) + window),
                        window)
+
+
+@pytest.mark.parametrize("dtype,atol", [(torch.float32, 2e-5),
+                                        (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("b,hq,hkv,t,s,d,window", [
+    (1, 4, 2, 192, 192, 32, 16),     # every key after pos - window
+    (2, 8, 2, 130, 170, 64, 50),     # ragged, queries right-aligned
+    (1, 24, 8, 256, 256, 64, 100),   # granite-moe's heads (3:1, D = 64)
+])
+def test_flash_kernel_non_causal_window_matches_plain(cuda, b, hq, hkv, t, s,
+                                                      d, window, dtype, atol):
+    """``causal=False`` with a window: the kernel admits every key after
+    ``pos - window``, those past the query's position too, as the plain
+    version does."""
+    g = torch.Generator(device=cuda).manual_seed(t + s + d + window)
+    q, k, v = (torch.randn(shape, generator=g, device=cuda).to(dtype)
+               for shape in ((b, hq, t, d), (b, hkv, s, d), (b, hkv, s, d)))
+    before = flash_attention.launches
+    got = flash_attention(q, k, v, causal=False, window=window)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + 1
+    torch.testing.assert_close(
+        got.float(), flash_attention_plain(q, k, v, causal=False,
+                                           window=window).float(),
+        rtol=0, atol=atol)
 
 
 @pytest.mark.parametrize("which", [0, 1, 2])

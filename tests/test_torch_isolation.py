@@ -1,8 +1,8 @@
 """The port stands alone: no module of ``src/repro_torch/`` and not
 ``chip_smoke.py`` imports JAX or the JAX package, the package imports and
-runs with both blocked (the stream stage and a smoke serve step), and its
-entry points refuse to run without a CUDA device unless the caller asks for
-the CPU."""
+runs with both blocked (the stream stage, a smoke serve step, an MoE smoke
+serve path and the serving engine), and its entry points refuse to run
+without a CUDA device unless the caller asks for the CPU."""
 
 import ast
 import os
@@ -85,6 +85,14 @@ logits, cache = make_serve_step(cfg, use_flash=True)(
     params, None, {"tokens": tokens}, 0)
 assert logits.shape == (2, 1, cfg.vocab_padded) and cache is None
 assert bool(torch.isfinite(logits.float()).all())
+
+from repro_torch.serve import ServeEngine
+moe_cfg = smoke_config("granite_moe_3b_a800m")
+first, greedy = serve_local(moe_cfg, 2, 12, 2, device="cpu",
+                            generator=torch.Generator().manual_seed(0))
+assert greedy.shape == (2, 2) and bool(torch.isfinite(first.float()).all())
+eng = ServeEngine(n_replicas=4)
+assert eng.run_interval([(1, 64, 8), (2, 32, 4)]).requests == 2
 assert not any(m == "jax" or m.startswith(("jax.", "repro."))
                for m in sys.modules if sys.modules[m] is not None)
 print("ok")

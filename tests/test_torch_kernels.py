@@ -21,7 +21,7 @@ from repro.kernels.key_stats import key_stats as pallas_key_stats
 from repro.kernels.routing_lookup import routing_lookup as pallas_routing
 from repro_torch.core.balancer import Hash32, fmix32 as np_fmix32
 from repro_torch.kernels import (RoutingTable, key_stats, ref, route_keys,
-                                 routing_lookup)
+                                 route_plain, routing_lookup)
 
 
 def _t(a, dtype=torch.int32):
@@ -142,6 +142,48 @@ def test_routing_rejects_duplicate_table_keys():
     tk = _t(np.array([4, -1, -1, -1], np.int32))
     assert int(routing_lookup(_t(np.array([4], np.int32)), tk, td, 10)[0]) \
         == 1
+
+
+def _negative_key_cases():
+    """ROADMAP's probe (keys -1 and -2 against a table with empty slots),
+    then seeded tables laid out as ``Assignment.table_arrays`` lays them
+    out (entries first, then key -1 / dest 0), with negative keys mixed in."""
+    yield (np.array([-1, -2, 5, 7], np.int32), np.array([5, -1, -1, -1],
+                                                          np.int32),
+           np.array([3, 0, 0, 0], np.int32), 13, 5)
+    rng = np.random.default_rng(17)
+    for a, n_real in ((8, 3), (64, 63), (32, 0)):
+        tk = np.full(a, -1, np.int32)
+        td = np.zeros(a, np.int32)
+        tk[:n_real] = rng.choice(500, size=n_real, replace=False)
+        td[:n_real] = rng.integers(1, 9, size=n_real)
+        keys = np.concatenate([rng.integers(0, 500, 200),
+                               [-1, -2, -3, -(2**31), -1]]).astype(np.int32)
+        yield keys, tk, td, 9, 3
+
+
+@pytest.mark.parametrize("case", range(4))
+def test_negative_keys_route_as_the_reference(case):
+    """Key -1 takes the first empty slot's dest (0), as the JAX package's
+    ``ref.routing_lookup`` and its Pallas kernel give; keys below -1 route
+    by their hash. The port's wrapper, its ``route_plain`` and its
+    ``kernels/ref.routing_lookup`` all agree."""
+    keys, tk, td, n_dest, seed = list(_negative_key_cases())[case]
+    oracle = np.asarray(jref.routing_lookup(
+        jnp.asarray(keys), jnp.asarray(tk), jnp.asarray(td), n_dest,
+        seed=seed))
+    pallas = np.asarray(pallas_routing(
+        jnp.asarray(keys), jnp.asarray(tk), jnp.asarray(td), n_dest,
+        seed=seed, interpret=True))
+    np.testing.assert_array_equal(pallas, oracle)
+    if case == 0:
+        np.testing.assert_array_equal(oracle, [0, 8, 3, 6])
+    table = RoutingTable(_t(tk), _t(td))
+    for got in (routing_lookup(_t(keys), _t(tk), _t(td), n_dest, seed=seed),
+                route_plain(_t(keys), table, n_dest, seed=seed),
+                ref.routing_lookup(_t(keys), _t(tk), _t(td), n_dest,
+                                   seed=seed)):
+        np.testing.assert_array_equal(got.numpy(), oracle)
 
 
 @pytest.mark.parametrize("bad", [torch.int64, torch.float32, torch.int16])

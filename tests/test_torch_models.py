@@ -372,4 +372,4 @@ def test_model_schema_and_configs():
     with pytest.raises(NotImplementedError, match="Queue A item 4"):
         get_config("jamba-1-5-large-398b")
     with pytest.raises(NotImplementedError, match="Queue A item 4"):
-        smoke_config("granite_moe_3b_a800m")
+        smoke_config("xlstm_125m")
