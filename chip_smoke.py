@@ -14,15 +14,18 @@ It prints one JSON line per phase, each with its wall seconds:
 * ``kernels`` — each kernel against its plain PyTorch version on the card,
   at the shapes the configurations below give it plus edge cases,
   timed with CUDA events (median of 25 launches, L2 flushed before each).
-  The flash rows also carry ``tflops`` (the mask's 4 D FLOPs per admitted
-  (query, key) pair over the kernel's time) and ``bound_share``
-  (``bound_ms / ms``: 1 would be the card's peak).
+  Every row carries ``bound_share`` (``bound_ms / ms``: 1 would be the
+  card's peak); the flash rows also ``tflops`` (the mask's 4 D FLOPs per
+  admitted (query, key) pair over the kernel's time), and the stats-path
+  row the two-weight launch that the stats path makes (``two_weight``).
 * ``stream``  — the main path, ``KeyedStage(state_backend="device",
   substrate="kernels")`` on the card: WordCount at the paper's Table II
   defaults (z = 0.85, f = 1.0, 15 tasks, theta_max = 0.08, A_max = 3000),
   K = 10^6 keys, window 5, 4M tuples per interval, 8 intervals. The same
   stream through ``state_backend="columnar", substrate="numpy"`` on the CPU
-  must give identical reports, outputs and routing tables.
+  must give identical reports, outputs and routing tables. The dense
+  route's time (``route_dense_ms``) is split into the routing table's build
+  on the host, its upload and the kernel (``route_dense_parts_ms``).
 * ``stats``   — the stats path, ``KeyedStage(state_backend="columnar",
   substrate="kernels")`` on the card, for the stream's first 4 intervals,
   against the same CPU reports (float32 stats: 1e-6 relative).
@@ -83,12 +86,12 @@ ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12
 SCALAR_OPS_PER_S = 67e12
 BF16_FLOPS_PER_S = 989e12
-#: 32-bit operations per key of the routing kernel: the fmix32 mix (9),
-#: the modulo and sign test (2), and a binary search of the sorted table,
-#: 4 per step (index, load, compare, select)
-ROUTE_OPS_PER_KEY = 11
-ROUTE_OPS_PER_STEP = 4
-#: per tuple of key_stats: two range tests and two atomic adds
+#: 32-bit operations per key of the routing kernel: the hash dest (the
+#: fmix32 mix, 9, and the modulo), the slot's mix and range (10) and one
+#: probe of a bucket (load, two compares, select: 4); at least one probe a
+#: key, so this is the least work
+ROUTE_OPS_PER_KEY = 24
+#: per tuple of key_stats: two range tests and two adds
 STATS_OPS_PER_TUPLE = 4
 REPORT_FIELDS = ("interval", "tuples", "makespan", "migration_stall",
                  "throughput", "skewness", "theta", "migrated_bytes",
@@ -243,9 +246,9 @@ def _table(rng, cfg: Config):
 
 
 def _stats_path_input(keys: np.ndarray, cfg: Config):
-    """What the stats path hands ``key_stats`` for one WordCount interval:
-    one entry per (dest, key) group in (dest, key) order, weighted by its
-    tuple count (float64, cast to float32 by the wrapper)."""
+    """What the stats path hands the kernel for one WordCount interval: one
+    entry per (dest, key) group in (dest, key) order, weighted by its tuple
+    count (float64, as the stats path's weights are)."""
     from repro_torch.core import Hash32
     uniq, counts = np.unique(keys, return_counts=True)
     dest = Hash32(cfg.n_tasks, cfg.seed)(uniq)
@@ -253,11 +256,45 @@ def _stats_path_input(keys: np.ndarray, cfg: Config):
     return uniq[order].astype(np.int32), counts[order].astype(np.float64)
 
 
+def stream_kernel_inputs(cfg: Config) -> dict:
+    """The stream kernels' inputs at the main path's shapes, as numpy arrays:
+    the routing table, the dense domain's keys and one interval's 4M zipf
+    tuples; the zipf tuples' costs and the stats path's (dest, key) groups
+    with their weights."""
+    from repro_torch.streams import WorkloadGen
+    rng = np.random.default_rng(cfg.seed + 1)
+    gen = WorkloadGen(k=cfg.k, z=cfg.z, f=cfg.f, seed=cfg.seed + 1,
+                      window=cfg.window)
+    keys4m = gen.draw_tuples(cfg.tuples).astype(np.int32)
+    tk, td = _table(rng, cfg)
+    domain = 1 << (cfg.k - 1).bit_length()
+    stats_keys, stats_counts = _stats_path_input(keys4m.astype(np.int64), cfg)
+    return {"table": (tk, td), "domain": domain,
+            "routing_lookup[dense]": np.arange(domain + 1, dtype=np.int32),
+            "routing_lookup[per_tuple]": keys4m,
+            "key_stats[zipf_tuples]": (
+                keys4m, rng.uniform(0.5, 1.5, size=keys4m.size)
+                .astype(np.float32), domain),
+            "key_stats[stats_path]": (
+                stats_keys, stats_counts, int(stats_keys.max()) + 1),
+            # the stats path's two weights: per-group cost and count
+            "stats_path_weights": (
+                stats_counts * rng.uniform(0.5, 1.5, size=stats_counts.size),
+                stats_counts)}
+
+
+def reorder_bound(torch, freq, pcost):
+    """How far a float32 sum of g(k) terms in another order may lie from
+    the plain version's (non-negative terms): each is within (g(k) - 1)
+    2^-24 sum|terms| of the exact sum."""
+    return 2.0 * freq * 2.0**-24 * pcost.abs() + 1e-30
+
+
 def check_edge_cases(torch, dev) -> float:
     """The wrappers' contracts on the card; returns the largest error."""
     from repro_torch.core import Hash32
-    from repro_torch.kernels import (RoutingTable, key_stats, route_keys,
-                                     route_plain, routing_lookup)
+    from repro_torch.kernels import (RoutingTable, key_stats, key_stats_plain,
+                                     route_keys, route_plain, routing_lookup)
     from repro_torch.core.balancer import fmix32
 
     def i32(a):
@@ -267,7 +304,8 @@ def check_edge_cases(torch, dev) -> float:
     probe = np.arange(4096, dtype=np.int64)
     high = probe[fmix32(probe.astype(np.uint32), 5) >= 2**31][:64]
     edge = np.concatenate([[0, 1, 2**31 - 2, 2**31 - 1], high])
-    for a in (1, 128, 16384):          # 16384 slots: 128 KB of shared memory
+    rng = np.random.default_rng(3)
+    for a in (1, 128, 4096, 16384):    # 16384 slots: the largest table
         tk = np.full(a, -1, np.int64)
         td = np.zeros(a, np.int64)
         tk[0], td[0] = 2**31 - 1, 11
@@ -276,17 +314,31 @@ def check_edge_cases(torch, dev) -> float:
         want = Hash32(13, 5)(edge)
         want[3] = 11
         err = max(err, float(np.abs(got - want).max()))
-        err = max(err, float((route_keys(i32(edge), table, 13, seed=5)
-                              - route_plain(i32(edge), table, 13, seed=5))
-                             .abs().max()))
+        # a full table, empty slots with other dests, the negative keys, and
+        # key arrays that start off the 16-byte grid
+        tk = np.full(a, -1, np.int64)
+        td = rng.integers(0, 13, size=a)
+        real = rng.choice(2**31 - 1, size=max(0, a - 3), replace=False)
+        tk[:real.size] = real
+        tk, td = tk[rng.permutation(a)], td
+        table = RoutingTable.from_arrays(tk, td, dev)
+        keys = np.concatenate([rng.choice(real, size=min(real.size, 500))
+                               if real.size else [], edge,
+                               [-1, -2, -(2**31), 2**31 - 1, -1]])
+        keys = i32(rng.permutation(keys))
+        for off in range(4):
+            got = route_keys(keys[off:], table, 13, seed=5)
+            want = route_plain(keys[off:], table, 13, seed=5)
+            err = max(err, float((got - want).abs().max()))
     if route_keys(i32([]), table, 13).numel() != 0:
         raise AssertionError("routing an empty key batch returned keys")
-    try:
-        routing_lookup(i32([4]), i32([4, -1, 4]), i32([1, 0, 2]), 10)
-    except ValueError:
-        pass
-    else:
-        raise AssertionError("duplicate table keys were not refused")
+    for tk, td in (([4, -1, 4], [1, 0, 2]), ([4, -1], [1, -1])):
+        try:
+            routing_lookup(i32([4]), i32(tk), i32(td), 10)
+        except ValueError:
+            pass
+        else:
+            raise AssertionError(f"table {tk} -> {td} was not refused")
     for bad in (torch.int64, torch.float32):
         for call in (lambda: route_keys(i32([1]).to(bad), table, 13),
                      lambda: key_stats(i32([1]).to(bad),
@@ -302,6 +354,19 @@ def check_edge_cases(torch, dev) -> float:
                                               device=dev), 4)
     err = max(err, float(np.abs(freq.cpu().numpy() - [1, 2, 0, 1]).max()),
               float(np.abs(cost.cpu().numpy() - [1, 6, 0, 8]).max()))
+    # one key in half the tuples, off the 16-byte grid, float64 costs
+    keys = rng.zipf(1.2, size=300_001) % 5000
+    keys[rng.random(keys.size) < 0.5] = 7
+    keys, costs = i32(keys), torch.from_numpy(rng.uniform(
+        0.5, 1.5, size=keys.size)).to(dev)
+    for off in range(4):
+        freq, cost = key_stats(keys[off:], costs[off:], 5000)
+        pfreq, pcost = key_stats_plain(keys[off:], costs[off:], 5000)
+        err = max(err, float((freq - pfreq).abs().max()))
+        if bool(((cost - pcost).abs() > reorder_bound(torch, pfreq,
+                                                     pcost)).any()):
+            raise AssertionError("key_stats on a hot key: c(k) off beyond "
+                                 "float32 reordering")
     return err
 
 
@@ -309,81 +374,92 @@ def phase_kernels(torch, cfg: Config, timer: Timer, dev):
     """Each kernel against its plain version, at the main path's shapes."""
     from repro_torch.kernels import (RoutingTable, key_stats, key_stats_plain,
                                      route_keys, route_plain)
-    from repro_torch.streams import WorkloadGen
-    rng = np.random.default_rng(cfg.seed + 1)
-    gen = WorkloadGen(k=cfg.k, z=cfg.z, f=cfg.f, seed=cfg.seed + 1,
-                      window=cfg.window)
-    keys4m = gen.draw_tuples(cfg.tuples).astype(np.int32)
-    tk, td = _table(rng, cfg)
-    table = RoutingTable.from_arrays(tk, td, dev)
-    domain = 1 << (cfg.k - 1).bit_length()
+    from repro_torch.kernels.key_stats import key_sums
+    inputs = stream_kernel_inputs(cfg)
+    table = RoutingTable.from_arrays(*inputs["table"], dev)
     edge_err = check_edge_cases(torch, dev)
     if edge_err != 0:
         raise AssertionError(f"edge cases: kernel off by {edge_err}")
 
     rows = []
-    for name, keys_np in (("routing_lookup[dense]",
-                           np.arange(domain + 1, dtype=np.int32)),
-                          ("routing_lookup[per_tuple]", keys4m)):
-        keys = torch.from_numpy(keys_np).to(dev)
+    for name in ("routing_lookup[dense]", "routing_lookup[per_tuple]"):
+        keys = torch.from_numpy(inputs[name]).to(dev)
         got = route_keys(keys, table, cfg.n_tasks, seed=cfg.seed)
         want = route_plain(keys, table, cfg.n_tasks, seed=cfg.seed)
         err = float((got - want).abs().max())
         if err != 0:
             raise AssertionError(f"{name}: kernel and plain routing differ")
         n = keys.numel()
-        steps = max(1, len(table)).bit_length()
+        ms = timer.ms(lambda: route_keys(keys, table, cfg.n_tasks,
+                                         seed=cfg.seed))
+        lower = bound(8 * n + 8 * len(table), n * ROUTE_OPS_PER_KEY)
         rows.append({
             "name": name, "route": "cuda",
             "source": "src/repro_torch/csrc/routing_lookup.cu",
             "replaces": "src/repro/kernels/routing_lookup.py:54",
-            "shape": {"n": n, "table_slots": len(table)},
-            "max_abs_err": max(err, edge_err),
-            "ms": timer.ms(lambda: route_keys(keys, table, cfg.n_tasks,
-                                              seed=cfg.seed)),
+            "shape": {"n": n, "table_slots": len(table),
+                      "table_buckets": int(table.buckets.shape[0]),
+                      "max_probe": table.max_probe},
+            "max_abs_err": max(err, edge_err), "ms": ms,
             "plain_ms": timer.ms(lambda: route_plain(keys, table,
                                                      cfg.n_tasks,
                                                      seed=cfg.seed)),
-            **bound(8 * n + 8 * len(table),
-                    n * (ROUTE_OPS_PER_KEY + ROUTE_OPS_PER_STEP * steps)),
+            **lower, "bound_share": lower["bound_ms"] / ms,
             "library_ms": None})
 
-    stats_keys, stats_costs = _stats_path_input(keys4m.astype(np.int64), cfg)
-    for name, keys_np, costs_np, num in (
-            ("key_stats[zipf_tuples]", keys4m,
-             rng.uniform(0.5, 1.5, size=keys4m.size).astype(np.float32),
-             domain),
-            ("key_stats[stats_path]", stats_keys, stats_costs,
-             int(stats_keys.max()) + 1)):
+    for name in ("key_stats[zipf_tuples]", "key_stats[stats_path]"):
+        keys_np, costs_np, num = inputs[name]
         keys = torch.from_numpy(keys_np).to(dev)
         costs = torch.from_numpy(costs_np).to(dev)
         freq, cost = key_stats(keys, costs, num)
         pfreq, pcost = key_stats_plain(keys, costs, num)
         if not torch.equal(freq, pfreq):
             raise AssertionError(f"{name}: kernel and plain g(k) differ")
-        # float32 sums of the same terms in two orders: each differs from
-        # the exact sum by at most (g(k) - 1) * 2^-24 * c(k) (costs > 0)
-        tol = 2.0 * freq * 2.0**-24 * pcost.abs() + 1e-30
         cerr = (cost - pcost).abs()
-        if bool((cerr > tol).any()):
+        if bool((cerr > reorder_bound(torch, freq, pcost)).any()):
             raise AssertionError(f"{name}: kernel and plain c(k) differ "
                                  "beyond float32 reordering")
         valid = (keys >= 0) & (keys < num)
         mk = keys[valid]
         mc = costs[valid].to(torch.float32)
         n = keys.numel()
-        rows.append({
+        ms = timer.ms(lambda: key_stats(keys, costs, num))
+        lower = bound(n * (4 + costs.element_size()) + 8 * num,
+                      STATS_OPS_PER_TUPLE * n)
+        row = {
             "name": name, "route": "cuda",
             "source": "src/repro_torch/csrc/key_stats.cu",
             "replaces": "src/repro/kernels/key_stats.py:31",
-            "shape": {"n": n, "num_keys": num},
-            "max_abs_err": max(float(cerr.max()), edge_err),
-            "ms": timer.ms(lambda: key_stats(keys, costs, num)),
+            "shape": {"n": n, "num_keys": num,
+                      "cost_dtype": str(costs.dtype).split(".")[-1]},
+            "max_abs_err": max(float(cerr.max()), edge_err), "ms": ms,
             "plain_ms": timer.ms(lambda: key_stats_plain(keys, costs, num)),
-            **bound(8 * n + 8 * num, STATS_OPS_PER_TUPLE * n),
+            **lower, "bound_share": lower["bound_ms"] / ms,
             "library_ms": timer.ms(lambda: (
                 torch.bincount(mk, minlength=num),
-                torch.bincount(mk, weights=mc, minlength=num)))})
+                torch.bincount(mk, weights=mc, minlength=num)))}
+        if name == "key_stats[stats_path]":
+            # what the stats path launches: both weights in one pass,
+            # against two plain calls
+            w1, w2 = (torch.from_numpy(w).to(dev)
+                      for w in inputs["stats_path_weights"])
+            s1, s2 = key_sums(keys, w1, w2, num)
+            p1 = key_stats_plain(keys, w1, num)[1]
+            p2 = key_stats_plain(keys, w2, num)[1]
+            # each key appears once in the stats path's groups: the sums
+            # are single float32 casts, equal in any order
+            werr = max(float((s1 - p1).abs().max()),
+                       float((s2 - p2).abs().max()))
+            if werr != 0:
+                raise AssertionError(f"two-weight stats launch off its plain "
+                                     f"calls by {werr}")
+            row["two_weight"] = {
+                "max_abs_err": werr,
+                "ms": timer.ms(lambda: key_sums(keys, w1, w2, num)),
+                "plain_ms": timer.ms(lambda: (
+                    key_stats_plain(keys, w1, num),
+                    key_stats_plain(keys, w2, num)))}
+        rows.append(row)
     return rows
 
 
@@ -552,13 +628,16 @@ def phase_stream(cfg: Config, device, sync) -> tuple:
 
     Returns (metrics, the CPU reference's per-interval record for the stats
     phase)."""
+    from repro_torch.kernels.routing_lookup import RoutingTable
     from repro_torch.streams import WorkloadGen
+    from repro_torch.streams import device as device_mod
     dev = make_stage(cfg, "device", "kernels", device)
     ref = make_stage(cfg, "columnar", "numpy", "cpu")
     gen = WorkloadGen(k=cfg.k, z=cfg.z, f=cfg.f, seed=cfg.seed,
                       window=cfg.window)
     fleet = dev.backend.fleet
-    spans = {"step_ms": [], "route_ms": []}
+    spans = {"step_ms": [], "route_ms": [], "table_build_ms": [],
+             "table_upload_ms": [], "kernel_ms": []}
 
     def span(fn, key):
         def wrapper(*a, **kw):
@@ -572,6 +651,30 @@ def phase_stream(cfg: Config, device, sync) -> tuple:
 
     fleet.interval_step = span(fleet.interval_step, "step_ms")
     fleet.route_dense = span(fleet.route_dense, "route_ms")
+    # the dense route's parts: the table built on the host, its upload and
+    # the kernel, each between two synchronisations (which the route's own
+    # span then includes)
+    build, to, route = RoutingTable.build, RoutingTable.to, \
+        device_mod.route_keys
+    RoutingTable.build = classmethod(span(build.__func__, "table_build_ms"))
+    RoutingTable.to = span(to, "table_upload_ms")
+    device_mod.route_keys = span(route, "kernel_ms")
+    try:
+        result = _drive_stream(cfg, dev, ref, gen, sync)
+    finally:
+        RoutingTable.build, RoutingTable.to = build, to
+        device_mod.route_keys = route
+    metrics, record = result
+    metrics.update({"step_ms": spans["step_ms"],
+                    "route_dense_ms": spans["route_ms"],
+                    "route_dense_parts_ms": {
+                        k: spans[k] for k in ("table_build_ms",
+                                              "table_upload_ms",
+                                              "kernel_ms")}})
+    return metrics, record
+
+
+def _drive_stream(cfg: Config, dev, ref, gen, sync) -> tuple:
     record, interval_ms, ref_ms, gen_ms = [], [], [], []
     for i in range(cfg.intervals):
         t0 = time.perf_counter()
@@ -609,7 +712,6 @@ def phase_stream(cfg: Config, device, sync) -> tuple:
             "interval_ms": interval_ms, "interval_ms_median": med,
             "tuples_per_s": cfg.tuples / med * 1e3,
             "plan_ms": plans, "plan_ms_median": statistics.median(plans),
-            "step_ms": spans["step_ms"], "route_dense_ms": spans["route_ms"],
             "generator_ms": gen_ms, "cpu_reference_interval_ms": ref_ms,
             "theta": [r.theta for r in dev.reports],
             "migrated_bytes": [r.migrated_bytes for r in dev.reports],

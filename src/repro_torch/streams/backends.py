@@ -41,7 +41,7 @@ import numpy as np
 import torch
 
 from ..core.balancer import Assignment, Hash32, KeyStats, metrics
-from ..kernels.key_stats import key_stats
+from ..kernels.key_stats import key_sums
 from .device import DeviceStateFleet, DeviceTaskView, _to_host
 from .operators import _occurrence_index
 from .state import ColumnarStateStore
@@ -270,17 +270,16 @@ class HostStoreBackend(StateBackend):
                               held_sizes) -> KeyStats:
         """Step-1 stats through the ``key_stats`` kernel over a dense domain.
 
-        The kernel is a weighted segment-sum, so two launches — weights =
-        per-key cost, weights = per-key freq — yield c(k) and g(k).
+        The kernel is a weighted segment-sum, so one launch with two weights
+        — per-group cost and per-group freq — yields c(k) and g(k).
         Accumulation is float32 on the device; reports therefore match the
         numpy path to ~1e-6 relative, not bit-for-bit."""
         dev = self.stage.device
         num = int(max(seen.max(initial=0), held_keys.max(initial=0))) + 1
-        seen_dev = torch.from_numpy(seen.astype(np.int32)).to(dev)
-        _, cost_d = key_stats(seen_dev, torch.from_numpy(cost_parts).to(dev),
-                              num)
-        _, freq_d = key_stats(seen_dev, torch.from_numpy(freq_parts).to(dev),
-                              num)
+        cost_d, freq_d = key_sums(
+            torch.from_numpy(seen.astype(np.int32)).to(dev),
+            torch.from_numpy(cost_parts).to(dev),
+            torch.from_numpy(freq_parts).to(dev), num)
         cost = cost_d.cpu().numpy().astype(np.float64)
         freq = freq_d.cpu().numpy().astype(np.float64)
         mem = metrics.segment_sum(held_sizes, held_keys, num)

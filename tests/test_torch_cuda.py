@@ -16,6 +16,7 @@ from repro_torch.configs import smoke_config
 from repro_torch.kernels import (RoutingTable, flash_attention,
                                  flash_attention_plain, key_stats,
                                  key_stats_plain, route_keys, route_plain)
+from repro_torch.kernels.key_stats import key_sums
 from repro_torch.launch.serve import init_request
 from repro_torch.train.train_step import make_serve_step
 from repro_torch.streams import KeyedStage, MergeCounts, WordCount, WorkloadGen
@@ -62,6 +63,82 @@ def test_routing_kernel_routes_key_minus_one_to_the_first_empty_slot(cuda):
     assert route_keys.launches == before + 1
     assert got.cpu().tolist() == [0, 8, 3, 6]
     assert route_plain(keys, table, 13, seed=5).cpu().tolist() == [0, 8, 3, 6]
+
+
+@pytest.mark.parametrize("offset", [0, 1, 2, 3])
+@pytest.mark.parametrize("a,n_real", [(1, 0), (128, 64), (4096, 3000),
+                                      (16384, 16381)])
+def test_routing_kernel_edge_keys_and_offsets(cuda, a, n_real, offset):
+    """The hash-table kernel against ``route_plain``, bit-identical: tables
+    of 1 to 16384 slots (192 KB staged), empty slots with different dests,
+    keys -1, -2, INT32_MIN and 2**31 - 1, and key arrays that start 0-3
+    elements off the 16-byte grid, so the scalar head and tail run."""
+    rng = np.random.default_rng(a + offset)
+    tk = np.full(a, -1, np.int32)
+    tk[:n_real] = rng.choice(2**31 - 1, size=n_real, replace=False)
+    td = rng.integers(0, 13, size=a).astype(np.int32)
+    tk = tk[rng.permutation(a)]
+    table = RoutingTable.from_arrays(tk, td, cuda)
+    real = tk[tk >= 0]
+    keys = np.concatenate([
+        rng.choice(real, size=5000) if real.size else [],
+        rng.integers(-2**31, 2**31 - 1, size=5003),
+        [-1, -2, -(2**31), 2**31 - 1, -1]]).astype(np.int32)
+    kt = torch.from_numpy(rng.permutation(keys)).to(cuda)[offset:]
+    assert kt.data_ptr() % 16 == 4 * offset
+    before = route_keys.launches
+    got = route_keys(kt, table, 13, seed=7)
+    torch.cuda.synchronize()
+    assert route_keys.launches == before + 1
+    torch.testing.assert_close(got, route_plain(kt, table, 13, seed=7),
+                               rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("cost_dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("offset", [0, 3])
+def test_key_stats_kernel_hot_key(cuda, cost_dtype, offset):
+    """A zipf z = 1.2 stream with one key in half the tuples (the warp
+    groups and the block cache): g(k) exact, c(k) within float32
+    reordering, 2 g(k) 2^-24 |c(k)| (costs > 0)."""
+    rng = np.random.default_rng(21 + offset)
+    keys = rng.zipf(1.2, size=1_000_003) % 70_000
+    keys[rng.random(keys.size) < 0.5] = 11
+    keys = torch.from_numpy(keys.astype(np.int32)).to(cuda)[offset:]
+    costs = torch.from_numpy(rng.uniform(0.5, 1.5, size=1_000_003)) \
+        .to(cuda, cost_dtype)[offset:]
+    before = key_stats.launches
+    freq, cost = key_stats(keys, costs, 70_000)
+    torch.cuda.synchronize()
+    assert key_stats.launches == before + 1
+    pfreq, pcost = key_stats_plain(keys, costs, 70_000)
+    torch.testing.assert_close(freq, pfreq, rtol=0, atol=0)
+    assert int(freq[11]) > 490_000
+    assert bool(((cost - pcost).abs()
+                 <= 2 * pfreq * 2.0**-24 * pcost.abs() + 1e-30).all())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_key_sums_kernel_matches_two_plain_calls(cuda, dtype):
+    """The stats path's one launch for two weights against two plain calls:
+    unique keys (one term a key) are exact, repeated keys within float32
+    reordering."""
+    rng = np.random.default_rng(5)
+    for keys_np in (rng.permutation(300_000)[:200_001],
+                    rng.integers(-5, 50_000, size=200_001)):
+        keys = torch.from_numpy(keys_np.astype(np.int32)).to(cuda)
+        w1 = torch.from_numpy(rng.uniform(0.1, 9.0, size=keys.numel())) \
+            .to(cuda, dtype)
+        w2 = torch.from_numpy(rng.integers(1, 40, size=keys.numel())
+                              .astype(np.float64)).to(cuda, dtype)
+        before = key_stats.launches
+        s1, s2 = key_sums(keys, w1, w2, 300_000)
+        torch.cuda.synchronize()
+        assert key_stats.launches == before + 1
+        count = key_stats_plain(keys, w1, 300_000)[0]
+        for got, w in ((s1, w1), (s2, w2)):
+            want = key_stats_plain(keys, w, 300_000)[1]
+            assert bool(((got - want).abs()
+                         <= 2 * count * 2.0**-24 * want.abs()).all())
 
 
 @pytest.mark.parametrize("n,num_keys", [(1, 1), (5000, 33), (1_000_000,

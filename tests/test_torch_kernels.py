@@ -22,6 +22,7 @@ from repro.kernels.routing_lookup import routing_lookup as pallas_routing
 from repro_torch.core.balancer import Hash32, fmix32 as np_fmix32
 from repro_torch.kernels import (RoutingTable, key_stats, ref, route_keys,
                                  route_plain, routing_lookup)
+from repro_torch.kernels.key_stats import key_sums
 
 
 def _t(a, dtype=torch.int32):
@@ -186,6 +187,88 @@ def test_negative_keys_route_as_the_reference(case):
         np.testing.assert_array_equal(got.numpy(), oracle)
 
 
+def _probe_emulation(keys, table, n_dest, seed):
+    """The routing kernel's probe loop in plain torch over the host table:
+    (dests, the probe at which each key was found or -1)."""
+    buckets = table.buckets.cpu()
+    nb = buckets.shape[0]
+    home = (ref.fmix32(keys, table.salt) * table.n_home) >> 32
+    out = (ref.fmix32(keys, seed) % n_dest).to(torch.int32)
+    found = torch.full(keys.shape, -1, dtype=torch.int64)
+    done = torch.zeros(keys.shape, dtype=torch.bool)
+    for p in range(table.max_probe):
+        e = buckets[(home + p).clamp(max=nb - 1)]
+        for kc, dc in ((0, 1), (2, 3)):
+            hit = ~done & (e[:, kc] == keys) & (e[:, dc] >= 0)
+            out = torch.where(hit, e[:, dc], out)
+            found = torch.where(hit, p, found)
+            done |= hit
+        done |= (e[:, 1] < 0) | (e[:, 3] < 0)
+    return out, found
+
+
+@pytest.mark.parametrize("a,n_real", [(1, 0), (128, 64), (4096, 3000),
+                                      (16384, 16381)])
+def test_routing_table_probe_matches_references(a, n_real):
+    """The host-built hash table, probed as the kernel probes it, routes as
+    ``route_plain``, the JAX ``ref.routing_lookup`` and Pallas interpret do:
+    table keys, misses, keys -1, -2, INT32_MIN and 2**31 - 1, against empty
+    slots with different dests (key -1 takes the first one's). Every table
+    key is found within the recorded longest chain, which some key needs."""
+    rng = np.random.default_rng(a + n_real)
+    tk = np.full(a, -1, np.int32)
+    tk[:n_real] = rng.choice(2**31 - 1, size=n_real, replace=False)
+    td = rng.integers(0, 13, size=a).astype(np.int32)
+    perm = rng.permutation(a)
+    tk, td = tk[perm], td[perm]
+    real = tk[tk >= 0]
+    keys = np.concatenate([
+        rng.choice(real, size=min(real.size, 400)) if real.size else [],
+        rng.integers(-2**31, 2**31 - 1, size=300), _edge_keys(),
+        [-1, -2, -(2**31), 2**31 - 1, -1]]).astype(np.int32)
+    table = RoutingTable.build(tk, td)
+    assert table.device == torch.device("cpu") and len(table) == a
+    got, found = _probe_emulation(_t(keys), table, 13, 7)
+    oracle = np.asarray(jref.routing_lookup(
+        jnp.asarray(keys), jnp.asarray(tk), jnp.asarray(td), 13, seed=7))
+    np.testing.assert_array_equal(got.numpy(), oracle)
+    np.testing.assert_array_equal(
+        route_plain(_t(keys), table, 13, seed=7).numpy(), oracle)
+    pallas = np.asarray(pallas_routing(
+        jnp.asarray(keys), jnp.asarray(tk), jnp.asarray(td), 13, seed=7,
+        interpret=True))
+    # Pallas takes the largest dest among equal table keys, so it parts from
+    # the first-slot rule only on key -1 against empty slots of other dests
+    other = keys != -1
+    np.testing.assert_array_equal(got.numpy()[other], pallas[other])
+    empty = td[tk == -1]
+    if empty.size:
+        assert (got.numpy()[~other] == empty[0]).all()
+        assert (pallas[~other] == empty.max()).all()
+    # the chain bound: every distinct table key is found, the longest needs
+    # exactly max_probe buckets
+    distinct = np.unique(tk)
+    _, at = _probe_emulation(_t(distinct), table, 13, 7)
+    assert (at >= 0).all()
+    assert int(at.max()) + 1 == table.max_probe <= 16
+    assert table.buckets.shape[0] * 16 <= 192 * 1024
+
+
+def test_routing_table_refuses_what_it_cannot_hold():
+    with pytest.raises(ValueError, match="duplicate routing table key 4"):
+        RoutingTable.build(np.array([4, -1, 4]), np.array([1, 0, 2]))
+    with pytest.raises(ValueError, match="dests must be >= 0"):
+        RoutingTable.build(np.array([4, -1]), np.array([1, -1]))
+    with pytest.raises(ValueError, match="MAX_TABLE"):
+        RoutingTable.build(np.full(16385, -1), np.zeros(16385))
+    # -1 and other negative keys may repeat: the first slot wins
+    table = RoutingTable.build(np.array([-2, -1, -2, -1]),
+                               np.array([3, 5, 4, 6]))
+    np.testing.assert_array_equal(
+        route_plain(_t(np.array([-2, -1], np.int32)), table, 7).numpy(),
+        [3, 5])
+
+
 @pytest.mark.parametrize("bad", [torch.int64, torch.float32, torch.int16])
 def test_routing_rejects_non_int32(bad):
     keys = torch.tensor([1, 2, 3], dtype=torch.int32)
@@ -261,6 +344,24 @@ def test_key_stats_accumulates_any_float_in_float32(cost_dtype):
     jcosts = jnp.asarray(costs.to(torch.float32).numpy())
     _, jcost = jref.key_stats(jnp.asarray(keys), jcosts, 100)
     np.testing.assert_allclose(cost.numpy(), np.asarray(jcost), rtol=1e-6)
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+def test_key_sums_matches_two_jax_calls(dtype):
+    """The stats path's two-weight form: each output is the JAX oracle's
+    c(k) for that weight (two plain calls on the CPU)."""
+    rng = np.random.default_rng(6)
+    keys = rng.integers(-2, 300, size=2000).astype(np.int32)
+    w1 = rng.uniform(0.5, 2.0, size=2000).astype(dtype)
+    w2 = rng.integers(1, 9, size=2000).astype(dtype)
+    s1, s2 = key_sums(_t(keys), torch.from_numpy(w1), torch.from_numpy(w2),
+                      297)
+    for got, w in ((s1, w1), (s2, w2)):
+        _, want = jref.key_stats(jnp.asarray(keys),
+                                 jnp.asarray(w.astype(np.float32)), 297)
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-6)
+    with pytest.raises(ValueError, match="one shape"):
+        key_sums(_t(keys), torch.from_numpy(w1), torch.ones(3), 297)
 
 
 @pytest.mark.parametrize("bad", [torch.int64, torch.float32, torch.int16])

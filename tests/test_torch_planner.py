@@ -10,12 +10,15 @@ import pytest
 from repro.core import RebalanceController as RefController
 from repro.core.balancer import Assignment as RefAssignment
 from repro.core.balancer import BalanceConfig as RefConfig
+from repro.core.balancer import KeyStats as RefKeyStats
+from repro.core.balancer import ModHash as RefModHash
 from repro.core.balancer import mixed as ref_mixed
+from repro.core.balancer import simple as ref_simple
 from repro.core.balancer.hashing import Hash32 as RefHash32
 from repro.streams import WorkloadGen as RefGen
 from repro_torch.core import (Assignment, BalanceConfig, Hash32, KeyStats,
                               RebalanceController)
-from repro_torch.core.balancer import mixed, strategy_names
+from repro_torch.core.balancer import HashRouter, mixed, strategy_names
 from repro_torch.streams import WorkloadGen
 
 
@@ -98,3 +101,54 @@ def test_only_mixed_is_registered_and_sketch_waits():
         RebalanceController(a, BalanceConfig(), stats_mode="sketch")
     with pytest.raises(ValueError, match="unknown algorithm"):
         RebalanceController(a, BalanceConfig(), algorithm="pkg")
+
+
+class _FixedRouter(HashRouter):
+    """A base hash given as a table of dests by key id."""
+
+    def __init__(self, dests):
+        self.dests = np.asarray(dests, dtype=np.int64)
+        self.n_dest = int(self.dests.max()) + 1
+
+    def __call__(self, keys):
+        return self.dests[np.asarray(keys, dtype=np.int64)]
+
+
+# The falsifying instance that `--hypothesis-seed 2` finds for the reference's
+# tests/test_balancer_properties.py::test_theorem2_mixed_not_worse_than_simple:
+# its strategy's draw (seed 37, k = 8, n_dest = 2, theta_max = 0.0) written
+# out, with ModHash(2, seed=37 % 7)'s dests.
+_THEOREM2_COST = [2.941955803873058, 1.5349860007938476, 1.1602196616817508,
+                  1.8223501101542663, 1.6664079576321704, 1.0638942786808518,
+                  2.1544006140504366, 1.093098491597558]
+_THEOREM2_MEM = [1.5697141237547698, 1.039535449537051, 2.9885263826644484,
+                 1.9340875914266016, 1.2377409935933306, 1.0069022994536196,
+                 1.1188250450789388, 2.731803118217393]
+_THEOREM2_DESTS = [0, 1, 1, 1, 0, 1, 0, 0]
+
+
+def test_theorem2_instance_is_the_reference_planners_own():
+    """On the instance the reference's property test flips on, the port's
+    Mixed plans what the reference's Mixed plans, to the bit, and both miss
+    the test's claim against the reference's Simple by the same margin: the
+    defect lies in the planner both packages share, not in the port. (The
+    port has no Simple yet: ROADMAP Queue A item 4.)"""
+    keys = np.arange(8, dtype=np.int64)
+    cost, mem = np.array(_THEOREM2_COST), np.array(_THEOREM2_MEM)
+    ref_a = RefAssignment(RefModHash(2, seed=37 % 7))
+    np.testing.assert_array_equal(ref_a.hash_router(keys), _THEOREM2_DESTS)
+    ref_stats = RefKeyStats(keys=keys, cost=cost, mem=mem)
+    cfg_args = dict(theta_max=0.0, table_max=4)
+    want = ref_mixed(ref_stats, ref_a, RefConfig(**cfg_args))
+    got = mixed(KeyStats(keys=keys, cost=cost, mem=mem),
+                Assignment(_FixedRouter(_THEOREM2_DESTS)),
+                BalanceConfig(**cfg_args))
+    _assert_same_plan(got, want)
+    th_simple = ref_simple(ref_stats, ref_a, RefConfig(**cfg_args)).theta
+    # the reference test's else-branch (Simple misses theta_max = 0 too)
+    # asks for Mixed's theta <= Simple's + 0.02; both Mixeds exceed it
+    assert th_simple > 0.0
+    assert got.theta == want.theta > th_simple + 0.02
+    np.testing.assert_allclose([got.theta, th_simple],
+                               [0.07272102461446749, 0.016941071972724826],
+                               rtol=1e-12)
