@@ -29,6 +29,16 @@ It prints one JSON line per phase, each with its wall seconds:
 * ``stats``   — the stats path, ``KeyedStage(state_backend="columnar",
   substrate="kernels")`` on the card, for the stream's first 4 intervals,
   against the same CPU reports (float32 stats: 1e-6 relative).
+* ``stream_sketch`` — the stream deployment with
+  ``RebalanceController(stats_mode="sketch")`` (count-min sketch and
+  SpaceSaving head tracker, the default ``SketchConfig``): Mixed for 8
+  intervals, then MinTable, MinMig and compact Mixed for 3 each, each held
+  interval by interval against the same planner's sketch-mode stage on the
+  CPU (``SKETCH_ORACLE``). Per planner: interval, plan and ``ingest`` ms,
+  tuples/s, the snapshot's head keys (beside the exact phase's stats
+  keys), the sketch's bytes, θ and the routing kernel's launches, which
+  must cover every assignment version the stage routed with. Its routing
+  table and dense domain also give the kernel a row of its own.
 * ``serve``   — the serving slice: gemma3-12b at full width and depth
   (48 layers, d_model 3840, 16/8 heads of 240, vocab 262144) with random
   bf16 weights from a seeded generator on the card, 4 requests of 2048
@@ -69,6 +79,7 @@ without ``src/repro_torch``.
 from __future__ import annotations
 
 import dataclasses
+import hashlib
 import json
 import statistics
 import subprocess
@@ -370,10 +381,35 @@ def check_edge_cases(torch, dev) -> float:
     return err
 
 
+def routing_row(timer: Timer, name: str, keys, table, cfg: Config,
+                edge_err: float = 0.0) -> dict:
+    """The routing kernel on ``keys`` against its plain version: the row of
+    the ``kernels`` line (launches are added by ``main``)."""
+    from repro_torch.kernels import route_keys, route_plain
+    got = route_keys(keys, table, cfg.n_tasks, seed=cfg.seed)
+    want = route_plain(keys, table, cfg.n_tasks, seed=cfg.seed)
+    err = float((got - want).abs().max())
+    if err != 0:
+        raise AssertionError(f"{name}: kernel and plain routing differ")
+    n = keys.numel()
+    ms = timer.ms(lambda: route_keys(keys, table, cfg.n_tasks, seed=cfg.seed))
+    lower = bound(8 * n + 8 * len(table), n * ROUTE_OPS_PER_KEY)
+    return {
+        "name": name, "route": "cuda",
+        "source": "src/repro_torch/csrc/routing_lookup.cu",
+        "replaces": "src/repro/kernels/routing_lookup.py:54",
+        "shape": {"n": n, "table_slots": len(table),
+                  "table_buckets": int(table.buckets.shape[0]),
+                  "max_probe": table.max_probe},
+        "max_abs_err": max(err, edge_err), "ms": ms,
+        "plain_ms": timer.ms(lambda: route_plain(keys, table, cfg.n_tasks,
+                                                 seed=cfg.seed)),
+        **lower, "bound_share": lower["bound_ms"] / ms, "library_ms": None}
+
+
 def phase_kernels(torch, cfg: Config, timer: Timer, dev):
     """Each kernel against its plain version, at the main path's shapes."""
-    from repro_torch.kernels import (RoutingTable, key_stats, key_stats_plain,
-                                     route_keys, route_plain)
+    from repro_torch.kernels import RoutingTable, key_stats, key_stats_plain
     from repro_torch.kernels.key_stats import key_sums
     inputs = stream_kernel_inputs(cfg)
     table = RoutingTable.from_arrays(*inputs["table"], dev)
@@ -381,31 +417,10 @@ def phase_kernels(torch, cfg: Config, timer: Timer, dev):
     if edge_err != 0:
         raise AssertionError(f"edge cases: kernel off by {edge_err}")
 
-    rows = []
-    for name in ("routing_lookup[dense]", "routing_lookup[per_tuple]"):
-        keys = torch.from_numpy(inputs[name]).to(dev)
-        got = route_keys(keys, table, cfg.n_tasks, seed=cfg.seed)
-        want = route_plain(keys, table, cfg.n_tasks, seed=cfg.seed)
-        err = float((got - want).abs().max())
-        if err != 0:
-            raise AssertionError(f"{name}: kernel and plain routing differ")
-        n = keys.numel()
-        ms = timer.ms(lambda: route_keys(keys, table, cfg.n_tasks,
-                                         seed=cfg.seed))
-        lower = bound(8 * n + 8 * len(table), n * ROUTE_OPS_PER_KEY)
-        rows.append({
-            "name": name, "route": "cuda",
-            "source": "src/repro_torch/csrc/routing_lookup.cu",
-            "replaces": "src/repro/kernels/routing_lookup.py:54",
-            "shape": {"n": n, "table_slots": len(table),
-                      "table_buckets": int(table.buckets.shape[0]),
-                      "max_probe": table.max_probe},
-            "max_abs_err": max(err, edge_err), "ms": ms,
-            "plain_ms": timer.ms(lambda: route_plain(keys, table,
-                                                     cfg.n_tasks,
-                                                     seed=cfg.seed)),
-            **lower, "bound_share": lower["bound_ms"] / ms,
-            "library_ms": None})
+    rows = [routing_row(timer, name, torch.from_numpy(inputs[name]).to(dev),
+                        table, cfg, edge_err)
+            for name in ("routing_lookup[dense]",
+                         "routing_lookup[per_tuple]")]
 
     for name in ("key_stats[zipf_tuples]", "key_stats[stats_path]"):
         keys_np, costs_np, num = inputs[name]
@@ -587,13 +602,15 @@ def phase_flash(torch, scfg: ServeConfig, mcfg: "MoeServeConfig",
 
 # -- phases 3 and 4: the two configurations -------------------------------------
 
-def make_stage(cfg: Config, backend: str, substrate: str, device):
+def make_stage(cfg: Config, backend: str, substrate: str, device,
+               stats_mode: str = "exact", algorithm: str = "mixed"):
     from repro_torch import (Assignment, BalanceConfig, Hash32, KeyedStage,
                              RebalanceController, WordCount)
     controller = RebalanceController(
         Assignment(Hash32(cfg.n_tasks, seed=cfg.seed)),
         BalanceConfig(theta_max=cfg.theta_max, table_max=cfg.table_max,
-                      window=cfg.window))
+                      window=cfg.window),
+        algorithm=algorithm, stats_mode=stats_mode)
     return KeyedStage(WordCount(), controller, window=cfg.window,
                       state_backend=backend, substrate=substrate,
                       device=device)
@@ -623,6 +640,25 @@ def _same_report(got, want, exact: bool) -> None:
                                    rtol=1e-5)
 
 
+def spanned(fn, times: list, sync):
+    """``fn`` that appends its wall ms, between two synchronisations, to
+    ``times``."""
+    def wrapper(*a, **kw):
+        sync()
+        t0 = time.perf_counter()
+        out = fn(*a, **kw)
+        sync()
+        times.append((time.perf_counter() - t0) * 1e3)
+        return out
+    return wrapper
+
+
+def table_digest(table: dict) -> str:
+    """A short digest of a routing table, to compare tables across runs."""
+    items = np.array(sorted(table.items()), dtype=np.int64)
+    return hashlib.sha1(items.tobytes()).hexdigest()[:12]
+
+
 def phase_stream(cfg: Config, device, sync) -> tuple:
     """The main path on ``device`` against columnar + numpy on the CPU.
 
@@ -640,14 +676,7 @@ def phase_stream(cfg: Config, device, sync) -> tuple:
              "table_upload_ms": [], "kernel_ms": []}
 
     def span(fn, key):
-        def wrapper(*a, **kw):
-            sync()
-            t0 = time.perf_counter()
-            out = fn(*a, **kw)
-            sync()
-            spans[key].append((time.perf_counter() - t0) * 1e3)
-            return out
-        return wrapper
+        return spanned(fn, spans[key], sync)
 
     fleet.interval_step = span(fleet.interval_step, "step_ms")
     fleet.route_dense = span(fleet.route_dense, "route_ms")
@@ -676,6 +705,7 @@ def phase_stream(cfg: Config, device, sync) -> tuple:
 
 def _drive_stream(cfg: Config, dev, ref, gen, sync) -> tuple:
     record, interval_ms, ref_ms, gen_ms = [], [], [], []
+    stats_keys, digests = [], []
     for i in range(cfg.intervals):
         t0 = time.perf_counter()
         if i:
@@ -687,6 +717,8 @@ def _drive_stream(cfg: Config, dev, ref, gen, sync) -> tuple:
         r_dev = dev.process_interval_arrays(keys)
         sync()
         interval_ms.append((time.perf_counter() - t0) * 1e3)
+        stats_keys.append(int(dev.last_stats.keys.size))
+        digests.append(table_digest(dev.controller.assignment.table))
         t0 = time.perf_counter()
         r_ref = ref.process_interval_arrays(keys)
         ref_ms.append((time.perf_counter() - t0) * 1e3)
@@ -700,8 +732,9 @@ def _drive_stream(cfg: Config, dev, ref, gen, sync) -> tuple:
                            dict(ref.controller.assignment.table)))
     if dev.outputs != ref.outputs or dev.emitted_sum != ref.emitted_sum:
         raise AssertionError("outputs differ from the CPU reference")
-    plans = [ev.result.plan_time_s * 1e3 for ev in dev.controller.history
-             if ev.result is not None]
+    results = [ev.result for ev in dev.controller.history
+               if ev.result is not None]
+    plans = [r.plan_time_s * 1e3 for r in results]
     if not plans or dev.controller.assignment.table_size == 0:
         raise AssertionError("the stream never rebalanced")
     med = statistics.median(interval_ms)
@@ -713,7 +746,9 @@ def _drive_stream(cfg: Config, dev, ref, gen, sync) -> tuple:
             "tuples_per_s": cfg.tuples / med * 1e3,
             "plan_ms": plans, "plan_ms_median": statistics.median(plans),
             "generator_ms": gen_ms, "cpu_reference_interval_ms": ref_ms,
+            "stats_keys": stats_keys, "table_digests": digests,
             "theta": [r.theta for r in dev.reports],
+            "planned_theta": [r.theta for r in results],
             "migrated_bytes": [r.migrated_bytes for r in dev.reports],
             "reports_match_cpu": True}, record
 
@@ -738,6 +773,142 @@ def phase_stats(cfg: Config, device, sync, record) -> dict:
     return {"intervals": len(record), "interval_ms": interval_ms,
             "interval_ms_median": statistics.median(interval_ms),
             "stats_match_cpu": True}
+
+
+#: the stream_sketch phase's planners, each with its interval count
+SKETCH_PLANNERS = (("mixed", 8), ("mintable", 3), ("minmig", 3),
+                   ("compact_mixed", 3))
+#: the CPU oracle of the stream_sketch phase: (state backend, substrate).
+#: The device backend folds each interval into the sketch once, the
+#: columnar backend twice (traffic, then held sizes); at this deployment
+#: both give the same reports and tables over Mixed's 8 intervals on the
+#: CPU, so the card is held against the columnar stage, as in ``stream``
+SKETCH_ORACLE = ("columnar", "numpy")
+
+
+def phase_stream_sketch(cfg: Config, device, sync, exact: dict) -> tuple:
+    """The stream deployment in sketch mode on ``device``: the stream
+    phase's stage with ``RebalanceController(stats_mode="sketch")`` and the
+    default ``SketchConfig`` (width 2^16, depth 2, capacity 16384, the cost
+    channel), under each planner of ``SKETCH_PLANNERS`` for its interval
+    count, the generator seeded as the stream phase's. Each interval is
+    held against the same planner's sketch-mode stage of ``SKETCH_ORACLE``
+    on the CPU: identical reports and routing tables, then identical
+    outputs, ``emitted_sum`` and held keys. Readj,
+    Simple, ``mixed_bf`` and the scalar reference planners plan in Python
+    loops over keys (Readj in O(rounds * H^2), ``mixed_bf`` in N_A + 1 LLFD
+    trials): at this size they time the host, not the port, so only the
+    CPU tests hold them against the JAX package.
+
+    ``exact`` is the stream phase's result: its per-interval stats keys,
+    plan and interval ms and planned θ are reported beside the sketch
+    run's, and Mixed's routing tables are compared with its tables
+    (``tables_as_exact``, a reading, not a check). Returns (metrics, Mixed's
+    last routing table and dense domain, for the kernel's row)."""
+    from repro_torch.kernels import key_stats, route_keys
+    out = {"oracle": "+".join(SKETCH_ORACLE),
+           "exact_stats_keys": exact["stats_keys"],
+           "exact_plan_ms": exact["plan_ms"],
+           "exact_interval_ms": exact["interval_ms"],
+           "exact_planned_theta": exact["planned_theta"]}
+    route_input = None
+    for algorithm, intervals in SKETCH_PLANNERS:
+        route_keys.launches = 0
+        key_stats.launches = 0
+        run, dev = _drive_sketch(cfg, algorithm, intervals, device, sync)
+        run["launches"] = {"route_keys": route_keys.launches,
+                           "key_stats": key_stats.launches}
+        if algorithm == "mixed":
+            # intervals whose plan gave the exact phase's routing table
+            run["tables_as_exact"] = [
+                a == b for a, b in zip(run.pop("table_digests"),
+                                       exact["table_digests"])]
+        else:
+            del run["table_digests"]
+        if route_input is None:
+            # padded as the stage pads the table it routes with next
+            table = dev.controller.assignment
+            pad = max(dev._table_capacity,
+                      128, 1 << max(0, table.table_size - 1).bit_length())
+            route_input = (*table.table_arrays(pad),
+                           dev.backend.fleet.domain)
+        out[algorithm] = run
+    return out, route_input
+
+
+def _drive_sketch(cfg: Config, algorithm: str, intervals: int, device,
+                  sync) -> tuple:
+    """One planner's sketch-mode run against the CPU oracle; returns
+    (metrics, the device stage)."""
+    from repro_torch.streams import WorkloadGen
+    dev = make_stage(cfg, "device", "kernels", device, "sketch", algorithm)
+    ref = make_stage(cfg, *SKETCH_ORACLE, "cpu", "sketch", algorithm)
+    gen = WorkloadGen(k=cfg.k, z=cfg.z, f=cfg.f, seed=cfg.seed,
+                      window=cfg.window)
+    ctrl = dev.controller
+    ingest_spans, sketch_bytes = [], [0]
+    ingest = ctrl.ingest
+
+    def timed_ingest(*a, **kw):
+        t0 = time.perf_counter()
+        ingest(*a, **kw)
+        ingest_spans.append((time.perf_counter() - t0) * 1e3)
+        sketch_bytes[0] = max(sketch_bytes[0], ctrl.sketch.nbytes)
+
+    ctrl.ingest = timed_ingest
+    fleet = dev.backend.fleet
+    step_ms, route_ms = [], []
+    fleet.interval_step = spanned(fleet.interval_step, step_ms, sync)
+    fleet.route_dense = spanned(fleet.route_dense, route_ms, sync)
+    interval_ms, ingest_ms, head_keys, versions = [], [], [], []
+    digests = []
+    for i in range(intervals):
+        if i:
+            gen.interval(ctrl.assignment)
+        keys = gen.draw_tuples(cfg.tuples).astype(np.int64)
+        versions.append(ctrl.assignment_version)
+        n_spans = len(ingest_spans)
+        sync()
+        t0 = time.perf_counter()
+        r_dev = dev.process_interval_arrays(keys)
+        sync()
+        interval_ms.append((time.perf_counter() - t0) * 1e3)
+        ingest_ms.append(sum(ingest_spans[n_spans:]))
+        head_keys.append(int(dev.last_stats.keys.size))
+        digests.append(table_digest(ctrl.assignment.table))
+        r_ref = ref.process_interval_arrays(keys)
+        _finite_report(r_dev, cfg.n_tasks)
+        _same_report(r_dev, r_ref, exact=True)
+        if ctrl.assignment.table != ref.controller.assignment.table:
+            raise AssertionError(f"{algorithm}, interval {i + 1}: routing "
+                                 "tables differ")
+        base = dev.last_stats.base_loads
+        if base is None or not np.all(np.isfinite(base)):
+            raise AssertionError(f"{algorithm}: no finite tail base loads")
+    if (dev.outputs != ref.outputs or dev.emitted_sum != ref.emitted_sum
+            or dev.total_state_keys() != ref.total_state_keys()):
+        raise AssertionError(f"{algorithm}: outputs differ from the CPU "
+                             "oracle")
+    if ctrl.triggered_intervals() != ref.controller.triggered_intervals():
+        raise AssertionError(f"{algorithm}: triggers differ")
+    results = [ev.result for ev in ctrl.history if ev.result is not None]
+    plans = [r.plan_time_s * 1e3 for r in results]
+    if not plans or ctrl.assignment.table_size == 0:
+        raise AssertionError(f"{algorithm}: the stream never rebalanced")
+    med = statistics.median(interval_ms)
+    return {"intervals": intervals, "rebalances": len(plans),
+            "table_size": ctrl.assignment.table_size,
+            "interval_ms": interval_ms, "interval_ms_median": med,
+            "tuples_per_s": cfg.tuples / med * 1e3,
+            "plan_ms": plans, "plan_ms_median": statistics.median(plans),
+            "ingest_ms": ingest_ms, "step_ms": step_ms,
+            "route_dense_ms": route_ms, "head_keys": head_keys,
+            "sketch_bytes": sketch_bytes[0],
+            "theta": [r.theta for r in dev.reports],
+            "planned_theta": [r.theta for r in results],
+            "table_digests": digests,
+            "versions_routed": sorted(set(versions)),
+            "reports_match_cpu": True}, dev
 
 
 # -- phases 5 and 6: the serving slices -----------------------------------------
@@ -1205,7 +1376,7 @@ def main() -> int:
               "(src/repro_torch is missing)", file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT / "src"))
-    from repro_torch.kernels import key_stats, route_keys
+    from repro_torch.kernels import RoutingTable, key_stats, route_keys
 
     cfg = Config()
     scfg = ServeConfig()
@@ -1252,6 +1423,26 @@ def main() -> int:
           "seconds": time.perf_counter() - t0})
 
     t0 = time.perf_counter()
+    sketch, (tk, td, domain) = phase_stream_sketch(cfg, "cuda", sync, stream)
+    for algorithm, _ in SKETCH_PLANNERS:
+        run = sketch[algorithm]
+        if run["launches"]["route_keys"] < len(run["versions_routed"]):
+            raise AssertionError(
+                f"sketch-mode {algorithm}: {run['launches']['route_keys']} "
+                f"routing launches for {len(run['versions_routed'])} "
+                "assignment versions")
+    sketch_launches = sum(sketch[a]["launches"]["route_keys"]
+                          for a, _ in SKETCH_PLANNERS)
+    timer = Timer(torch, cfg.reps)
+    rows.append(routing_row(
+        timer, "routing_lookup[dense,sketch]",
+        torch.arange(domain + 1, dtype=torch.int32, device="cuda"),
+        RoutingTable.from_arrays(tk, td, torch.device("cuda")), cfg))
+    del timer
+    emit({"phase": "stream_sketch", **sketch, "card": nvidia_smi_line(),
+          "seconds": time.perf_counter() - t0})
+
+    t0 = time.perf_counter()
     from repro_torch.configs import get_config
     serve = phase_serve(torch, get_config(scfg.arch), scfg, "cuda", sync)
     want = {str(w): n for w, n in sorted(
@@ -1289,6 +1480,7 @@ def main() -> int:
           "seconds": time.perf_counter() - t0})
 
     launches = {"routing_lookup[dense]": main_launches["route_keys"],
+                "routing_lookup[dense,sketch]": sketch_launches,
                 "routing_lookup[per_tuple]": stats_launches["route_keys"],
                 "key_stats[zipf_tuples]": stats_launches["key_stats"],
                 "key_stats[stats_path]": stats_launches["key_stats"],

@@ -2,8 +2,9 @@
 
 The paper's interval protocol (Fig. 5) end to end: routing F(k) (Eq. 1),
 one interval's state update on a device-resident window ring, step-1
-per-key statistics, the controller's trigger and Mixed plan (Alg. 4), and
-relabel-only migration. The two TPU kernels on that path — the routing
+per-key statistics (exact, or a count-min/SpaceSaving sketch), the
+controller's trigger and plan (Mixed, Alg. 4, by default, or any of the
+paper's other table planners), and relabel-only migration. The two TPU kernels on that path — the routing
 lookup and the per-key statistics histogram — are hand-written CUDA C++
 (``csrc/``), each beside its plain PyTorch version.
 

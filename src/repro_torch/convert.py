@@ -15,7 +15,9 @@ Snapshot layout (a dict)::
     table_dests        (-1 keys are empty slots)
     n_dest, hash_seed  the Hash32 router
     assignment_version the controller's version counter
-    last_stats         {"keys", "cost", "mem", "freq"} or None
+    last_stats         {"keys", "cost", "mem", "freq"[, "base_loads"]} or
+                       None ("base_loads": a sketch-mode snapshot's frozen
+                       tail)
     interval           the stage's interval counter
 
 and, for a stage caught between a rebalance and the next interval, the
@@ -23,6 +25,10 @@ in-flight protocol state: ``pending_delta`` (the keys the next interval's
 pause window buffers, or None), ``migrated_bytes_pending``,
 ``plan_time_pending``, plus the accumulated ``output_keys`` /
 ``output_values`` and ``emitted_sum``. These default to a stage at rest.
+A stage whose controller runs ``stats_mode="sketch"`` may also carry
+``sketch``, the JAX ``SketchStats.state_dict()`` (plain numpy arrays and
+numbers): the count-min planes, the SpaceSaving tracker and the
+per-destination totals, which the port's sketch then continues from.
 
 :func:`load_reference_params` carries a model's weights across: a nested
 dict of numpy arrays (``np.asarray`` of each leaf of a JAX parameter
@@ -59,6 +65,12 @@ def load_reference_state(stage: KeyedStage, snapshot: dict) -> None:
             and router.seed == int(snapshot["hash_seed"])):
         raise ValueError("the stage's router must be Hash32 with the "
                          "snapshot's seed")
+    sketch = snapshot.get("sketch")
+    if sketch is not None:
+        if ctrl.sketch is None:
+            raise ValueError("the snapshot carries a sketch; the stage's "
+                             "controller needs stats_mode='sketch'")
+        ctrl.sketch.load_state_dict(sketch)
     tk = np.asarray(snapshot["table_keys"], dtype=np.int64)
     td = np.asarray(snapshot["table_dests"], dtype=np.int64)
     live = tk >= 0
@@ -70,7 +82,8 @@ def load_reference_state(stage: KeyedStage, snapshot: dict) -> None:
     stats = snapshot["last_stats"]
     if stats is not None:
         stats = KeyStats(keys=stats["keys"], cost=stats["cost"],
-                         mem=stats["mem"], freq=stats["freq"])
+                         mem=stats["mem"], freq=stats["freq"],
+                         base_loads=stats.get("base_loads"))
     ctrl.last_stats = stats
 
     stage._interval = interval

@@ -13,6 +13,11 @@ import numpy as np
 
 from .types import HashRouter
 
+#: seed spacing wherever a family of independent fmix32 draws is needed (the
+#: count-min sketch's rows): the golden-ratio odd constant. fmix32
+#: decorrelates any two seeds; this just keeps them distinct per row.
+GOLDEN_SEED_STRIDE = 0x9E3779B9
+
 
 def fmix32(x: np.ndarray, seed: int = 0) -> np.ndarray:
     """Vectorized murmur3 finalizer (32-bit), uint32 in and out."""

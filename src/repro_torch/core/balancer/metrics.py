@@ -24,8 +24,8 @@ def segment_sum(values: np.ndarray, segment_ids: np.ndarray,
 def base_for(stats: KeyStats, n_dest: int) -> Optional[np.ndarray]:
     """The stats' frozen tail base loads sized to ``n_dest`` (or None).
 
-    Sketch-mode stats (not ported yet) carry per-destination cost for tail
-    keys absent from the per-key arrays. A rescale can briefly
+    Sketch-mode stats (``balancer/sketch.py``) carry per-destination cost
+    for tail keys absent from the per-key arrays. A rescale can briefly
     hand an ``n_dest`` differing from the snapshot's: pad with zeros on
     grow; truncate on shrink (the next interval's ingest re-derives the
     totals under the new fleet).

@@ -1,4 +1,4 @@
-"""Mixed (paper Alg. 4): the default planner.
+"""Mixed (paper Alg. 4) and its brute-force variant Mixed_BF.
 
 Phase I moves back ``n`` table keys chosen by eta = smallest S(k,w) first;
 Phases II/III follow MinMig (psi = largest gamma first). ``n`` starts at 0 and
@@ -70,3 +70,27 @@ def mixed(stats: KeyStats, assignment: Assignment,
             n = min(n_a, max(n + 1, 2 * max(n, 1)))
     return finish(ws, assignment, config, t0, trials=float(trials),
                   cleaned=float(n))
+
+
+def mixed_bf(stats: KeyStats, assignment: Assignment,
+             config: BalanceConfig) -> RebalanceResult:
+    """Brute force over n = 0..N_A; best feasible solution by migration cost."""
+    t0 = time.perf_counter()
+    psi = stats.gamma(config.beta)
+    ctx = PlannerContext(stats, assignment, config, psi=psi)
+    by_eta = _eta_order(stats, assignment)
+    base = Workspace(ctx=ctx)
+    cleaned = 0
+    best_ws, best_key, best_n = None, None, 0
+    for n in range(len(by_eta) + 1):
+        if n > cleaned:
+            base.move_back_many(by_eta[cleaned:n])
+            cleaned = n
+        ws = _run_trial(base)
+        table_ok = ws.working_table_size() <= config.table_max
+        mig = float(np.sum(ws.mem[ws.moved_mask()]))
+        key = (not table_ok, mig)                    # feasible first, then min M
+        if best_key is None or key < best_key:
+            best_ws, best_key, best_n = ws, key, n
+    return finish(best_ws, assignment, config, t0,
+                  trials=float(len(by_eta) + 1), cleaned=float(best_n))

@@ -1,18 +1,37 @@
-"""Result assembly shared by the phase-based planners (paper Sec. III).
+"""Shared Phase I/II/III runner for MinTable, MinMig and Mixed (paper Sec. III).
 
-Each phase-based algorithm is a Phase-I cleaning policy + psi criterion
-feeding the same LLFD Phase III (:mod:`.llfd`); this module turns a drained
-workspace into a :class:`RebalanceResult` and finds the current table keys.
+Each algorithm is a different Phase-I cleaning policy + psi criterion feeding
+the same LLFD Phase III; this module owns the plumbing and result assembly.
+Algorithms that run several trials (Mixed's n-escalation) build one
+:class:`PlannerContext` and clone checkpoints instead of calling
+:func:`run_phases` repeatedly — see ``mixed.py``.
 """
 
 from __future__ import annotations
 
 import time
+from typing import Optional
 
 import numpy as np
 
 from . import metrics
+from .llfd import PlannerContext, Workspace, llfd
 from .types import Assignment, BalanceConfig, KeyStats, RebalanceResult
+
+
+def run_phases(stats: KeyStats, assignment: Assignment, config: BalanceConfig,
+               *, psi: Optional[np.ndarray] = None,
+               clean_idxs: Optional[np.ndarray] = None,
+               ctx: Optional[PlannerContext] = None) -> Workspace:
+    """Phase I (move back ``clean_idxs``) -> Phase II -> Phase III (LLFD)."""
+    if ctx is None:
+        ctx = PlannerContext(stats, assignment, config, psi=psi)
+    ws = Workspace(ctx=ctx)
+    if clean_idxs is not None:
+        ws.move_back_many(np.asarray(clean_idxs, dtype=np.int64))
+    ws.prepare()
+    llfd(ws)
+    return ws
 
 
 def finish(ws, assignment: Assignment, config: BalanceConfig,
@@ -21,8 +40,12 @@ def finish(ws, assignment: Assignment, config: BalanceConfig,
 
     Loads are recomputed canonically (one segment-sum over the final
     assignment) rather than read from the workspace's incrementally
-    maintained estimate, so reported loads/theta do not depend on the
-    internal float accumulation order.
+    maintained estimate, so the array-native planner and the scalar oracle
+    (:mod:`.reference`) report bit-identical loads/theta regardless of their
+    internal float accumulation order. Works for both workspace
+    implementations. ``loads_for`` folds in any frozen tail base loads
+    (sketch-mode stats), so the reported loads/theta cover the whole
+    stream, not just the head.
     """
     table = ws.result_table()
     new = Assignment(assignment.hash_router, table)

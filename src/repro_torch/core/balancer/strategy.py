@@ -15,8 +15,9 @@ exactly this and delegate here):
   planner signature, wrapped as a :class:`TablePlanner`;
 * a **configured** :class:`PartitionStrategy` **instance** — used as-is.
 
-Only ``"mixed"`` (paper Alg. 4) is registered in this package; the choice
-routers (PKG, Power of Both Choices, W-Choices) are not ported yet.
+Every table planner the JAX package registers is registered here too
+(``balancer/__init__.py``); the choice routers (PKG, Power of Both Choices,
+W-Choices) are not ported yet.
 """
 
 from __future__ import annotations

@@ -28,12 +28,13 @@ class KeyStats:
       * ``cost[k]``  = c_{i-1}(k)   computation cost (CPU-seconds / chip-FLOPs)
       * ``mem[k]``   = S_{i-1}(k,w) windowed state size (bytes)
 
-    ``base_loads`` (optional; sketch-mode stats, not ported yet) carries per-destination cost that belongs to *tail* keys not present in
+    ``base_loads`` (optional, sketch-mode stats — see ``balancer/sketch.py``)
+    carries per-destination cost that belongs to *tail* keys not present in
     the per-key arrays: those keys are frozen on their hash destinations
     (the ``head_fraction`` head/tail contract), and every load/theta
     computation folds the base in (``metrics.loads_for``,
     ``PlannerContext.mean_load``). ``None`` (the default) means the per-key
-    arrays are the whole universe — the exact stats this package uses.
+    arrays are the whole universe — exact-mode stats.
     """
 
     keys: Array                    # (K,) int64 unique key ids

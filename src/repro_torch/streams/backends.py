@@ -15,7 +15,8 @@ The protocol (one instance per stage)::
     extract_batch(task, keys) / install_batch(task, pack)
                                         -> the ColumnarPack contract used by
                                            scale_to
-    collect_stats(...)                  -> KeyStats (paper step 1)
+    collect_stats(...)                  -> KeyStats (paper step 1), or
+                                           SKETCH_PENDING in sketch mode
 
 plus two classmethod selection hooks: :meth:`StateBackend.check` (raise
 ``ValueError`` when an explicit request is unsupported) and
@@ -48,6 +49,19 @@ from .state import ColumnarStateStore
 
 #: name -> backend class. Mutated only through :func:`register_backend`.
 BACKENDS: Dict[str, Type["StateBackend"]] = {}
+
+
+class _SketchPending:
+    """Sentinel: step-1 aggregates were streamed into the controller's
+    sketch (``RebalanceController.ingest``) instead of materialized as a
+    K-sized :class:`KeyStats`; ``KeyedStage._finish_interval`` closes the
+    round with ``controller.on_interval(None)``."""
+
+    def __repr__(self) -> str:  # pragma: no cover - debugging nicety
+        return "<SKETCH_PENDING>"
+
+
+SKETCH_PENDING = _SketchPending()
 
 
 def register_backend(cls: Type["StateBackend"]) -> Type["StateBackend"]:
@@ -250,6 +264,22 @@ class HostStoreBackend(StateBackend):
             np.zeros(0, np.int64)
         held_sizes = np.concatenate([h[1] for h in held]) if held else \
             np.zeros(0, np.float64)
+        if stage.controller.stats_mode == "sketch":
+            # stream the per-(task,key) aggregates into the controller's
+            # sketch instead of building the O(K) union universe. Two folds
+            # per interval: traffic (cost+freq; duplicates across tasks /
+            # macro-batches aggregate inside the sketch) and held state
+            # sizes (zero cost: quiet keys must not displace heavy
+            # hitters, but tracked keys pick up their exact S(k, w)).
+            # The seen∪held invariant holds because the snapshot always
+            # re-includes every current table key.
+            ctrl = stage.controller
+            if seen.size:
+                ctrl.ingest(seen, cost_parts, freq=freq_parts)
+            if held_keys.size:
+                ctrl.ingest(held_keys, np.zeros(held_keys.size),
+                            mem=held_sizes)
+            return SKETCH_PENDING if (seen.size or held_keys.size) else None
         universe = np.union1d(seen, held_keys)
         if not universe.size:
             return None
@@ -568,10 +598,19 @@ class DeviceBackend(StateBackend):
             if uni.size:
                 cost = np.zeros(uni.size, dtype=np.float64)
                 cost[np.searchsorted(uni, gk)] = key_cost_g
-                stats = KeyStats(keys=uni,
-                                 cost=cost,
-                                 mem=fleet.mem[uni].copy(),
-                                 freq=counts_h[alive].astype(np.float64))
+                if stage.controller.stats_mode == "sketch":
+                    # one fold with every channel: the step already
+                    # aggregated per key, so this is the same multiset the
+                    # host backends stream in (see HostStoreBackend)
+                    stage.controller.ingest(
+                        uni, cost, mem=fleet.mem[uni],
+                        freq=counts_h[alive].astype(np.float64))
+                    stats = SKETCH_PENDING
+                else:
+                    stats = KeyStats(keys=uni,
+                                     cost=cost,
+                                     mem=fleet.mem[uni].copy(),
+                                     freq=counts_h[alive].astype(np.float64))
         else:
             if fleet.domain and expire.any():
                 held_cnt, held_sum = fleet.evict(keep)
@@ -607,5 +646,9 @@ class DeviceBackend(StateBackend):
         uni = np.nonzero(fleet.task[:fleet.domain] >= 0)[0].astype(np.int64)
         if not uni.size:
             return None
+        if self.stage.controller.stats_mode == "sketch":
+            self.stage.controller.ingest(uni, np.zeros(uni.size),
+                                         mem=fleet.mem[uni])
+            return SKETCH_PENDING
         return KeyStats(keys=uni, cost=np.zeros(uni.size),
                         mem=fleet.mem[uni].copy(), freq=np.zeros(uni.size))

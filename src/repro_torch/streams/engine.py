@@ -29,13 +29,22 @@ hash router must be :class:`~repro_torch.core.balancer.Hash32` and key ids
 must fit int32. Stats come back float32, so reports match numpy to ~1e-6
 relative rather than bit-for-bit.
 
+Stats mode
+----------
+With a ``RebalanceController(stats_mode="sketch")`` every backend streams
+its step-1 aggregates through ``controller.ingest`` (a count-min sketch and
+a SpaceSaving head tracker) instead of building per-key
+:class:`~repro_torch.core.balancer.KeyStats`, and the round plans on the
+sketch's head-only snapshot. The columnar backend then skips the
+``key_stats`` kernel, as the JAX package skips its Pallas histogram.
+
 Device
 ------
 ``device=None`` means the CUDA card and raises ``RuntimeError`` when there
 is none; ``device="cpu"`` runs every kernel's plain PyTorch version on the
 CPU (the tests do). The JAX package's per-tuple reference loop
-(``vectorized=False``), failure-injection seam and topologies are not ported
-yet.
+(``vectorized=False``), object store, choice routers, failure-injection
+seam, checkpoints and topologies are not ported yet.
 """
 
 from __future__ import annotations
@@ -49,7 +58,7 @@ import torch
 from ..core.balancer import Assignment, Hash32, KeyStats, metrics
 from ..core.controller import RebalanceController
 from ..kernels.routing_lookup import RoutingTable, route_keys
-from .backends import resolve_backend
+from .backends import SKETCH_PENDING, resolve_backend
 from .device import resolve_device
 from .operators import Operator
 
@@ -238,8 +247,14 @@ class KeyedStage:
         if stats is not None:
             # pin the event to the STAGE interval: a stats-free interval
             # (no tuples, no held state) skips the controller
-            self.last_stats = stats
-            ev = self.controller.on_interval(stats, interval=iv)
+            if stats is SKETCH_PENDING:
+                # the backend streamed aggregates into the controller's
+                # sketch; close the round on the head-only snapshot
+                ev = self.controller.on_interval(None, interval=iv)
+                self.last_stats = self.controller.last_stats
+            else:
+                self.last_stats = stats
+                ev = self.controller.on_interval(stats, interval=iv)
             if ev.result is not None:
                 self._plan_time_pending = ev.result.plan_time_s
         return report

@@ -1,7 +1,9 @@
 """The port's host control plane against the JAX package's: the same
 KeyStats, made by the JAX package's generator from a fixed seed, must give
 bit-identical plans — same table, same moved keys, same loads and theta —
-from Mixed and from the RebalanceController's trigger, plan and rescale.
+from every registered planner (on exact stats and on a sketch snapshot with
+frozen tail loads), from HLHE discretization, and from the
+RebalanceController's trigger, plan and rescale.
 """
 
 import numpy as np
@@ -12,19 +14,32 @@ from repro.core.balancer import Assignment as RefAssignment
 from repro.core.balancer import BalanceConfig as RefConfig
 from repro.core.balancer import KeyStats as RefKeyStats
 from repro.core.balancer import ModHash as RefModHash
+from repro.core.balancer import SketchConfig as RefSketchConfig
+from repro.core.balancer import SketchStats as RefSketchStats
+from repro.core.balancer import discretize as ref_discretize
+from repro.core.balancer import hlhe_representatives as ref_hlhe
 from repro.core.balancer import mixed as ref_mixed
+from repro.core.balancer import resolve_strategy as ref_resolve_strategy
 from repro.core.balancer import simple as ref_simple
+from repro.core.balancer import strategy_names as ref_strategy_names
+from repro.core.balancer import total_deviation as ref_total_deviation
 from repro.core.balancer.hashing import Hash32 as RefHash32
 from repro.streams import WorkloadGen as RefGen
 from repro_torch.core import (Assignment, BalanceConfig, Hash32, KeyStats,
                               RebalanceController)
-from repro_torch.core.balancer import HashRouter, mixed, strategy_names
+from repro_torch.core.balancer import (HashRouter, discretize,
+                                       hlhe_representatives, mixed,
+                                       resolve_strategy, simple,
+                                       strategy_names, total_deviation)
 from repro_torch.streams import WorkloadGen
+
+#: the JAX package's per-tuple choice routers, which the port does not have
+CHOICE_ROUTERS = ("pkg", "potc", "wchoices")
 
 
 def _port_stats(stats):
     return KeyStats(keys=stats.keys, cost=stats.cost, mem=stats.mem,
-                    freq=stats.freq)
+                    freq=stats.freq, base_loads=stats.base_loads)
 
 
 def _assert_same_plan(got, want):
@@ -95,12 +110,76 @@ def test_controller_rounds_and_rescale_bit_identical():
 
 
 def test_only_mixed_is_registered_and_sketch_waits():
-    assert strategy_names() == ("mixed",)
+    """The port registers every table planner the JAX package registers, and
+    only the choice routers are missing; sketch mode no longer waits."""
+    assert strategy_names() == tuple(n for n in ref_strategy_names()
+                                     if n not in CHOICE_ROUTERS)
     a = Assignment(Hash32(4))
-    with pytest.raises(NotImplementedError, match="sketch"):
-        RebalanceController(a, BalanceConfig(), stats_mode="sketch")
-    with pytest.raises(ValueError, match="unknown algorithm"):
-        RebalanceController(a, BalanceConfig(), algorithm="pkg")
+    ctrl = RebalanceController(a, BalanceConfig(), stats_mode="sketch")
+    assert ctrl.stats_mode == "sketch" and ctrl.sketch is not None
+    for router in CHOICE_ROUTERS:
+        with pytest.raises(ValueError, match="unknown algorithm"):
+            RebalanceController(a, BalanceConfig(), algorithm=router)
+
+
+def _sketch_snapshot(stats, assignment, capacity):
+    """The JAX sketch's head-only view of ``stats``: the tracked heavy
+    hitters and table keys, with the tail frozen as base loads."""
+    sk = RefSketchStats(RefSketchConfig(width=1 << 10, capacity=capacity),
+                        assignment.n_dest, seed=3)
+    sk.update(stats.keys, assignment.dest(stats.keys), stats.cost,
+              mem=stats.mem, freq=stats.freq)
+    return sk.snapshot(assignment)
+
+
+@pytest.mark.parametrize("name", strategy_names())
+@pytest.mark.parametrize("mode", ["exact", "sketch"])
+def test_every_planner_matches_jax(name, mode):
+    """Each registered planner against the JAX package's function of the
+    same name, over three intervals whose assignments carry forward."""
+    n_dest, table_max = 7, 40
+    gen = RefGen(k=600, z=1.1, f=0.8, seed=21, window=2)
+    ref_a = RefAssignment(RefHash32(n_dest, seed=3))
+    port_a = Assignment(Hash32(n_dest, seed=3))
+    # HLHE degree 2: only compact_mixed reads it (the stage tests in
+    # test_torch_sketch.py run it on raw values)
+    kw = dict(theta_max=0.05, table_max=table_max, window=2, discretize_r=2)
+    ref_fn = ref_resolve_strategy(name).fn
+    port_planner = resolve_strategy(name)
+    for i in range(3):
+        stats = gen.interval(ref_a, fluctuate=i > 0)
+        if mode == "sketch":
+            stats = _sketch_snapshot(stats, ref_a, capacity=96)
+            assert stats.num_keys < 600 and stats.base_loads.sum() > 0
+        want = ref_fn(stats, ref_a, RefConfig(**kw))
+        got = port_planner.plan(_port_stats(stats), port_a,
+                                BalanceConfig(**kw))
+        _assert_same_plan(got, want)
+        assert got.meta == want.meta
+        ref_a, port_a = want.assignment, got.assignment
+    assert port_a.table_size > 0
+
+
+@pytest.mark.parametrize("values,r", [
+    ([1.0], 0),
+    ([7.5, 3.2, 3.2, 1.0, 12.9, 5.5, 2.25], 1),
+    ([64.0, 63.0, 33.3, 17.0, 16.0, 9.9, 1.5, 1.0], 3),
+    ("zipf", 4),
+], ids=["one", "r1_ties", "r3", "zipf_r4"])
+def test_discretize_matches_jax(values, r):
+    if values == "zipf":
+        values = np.random.default_rng(17).zipf(1.4, size=500).astype(float)
+    values = np.asarray(values, dtype=np.float64)
+    got, want = discretize(values, r), ref_discretize(values, r)
+    np.testing.assert_array_equal(got, want)
+    assert total_deviation(values, got) == ref_total_deviation(values, want)
+    np.testing.assert_array_equal(hlhe_representatives(values.max(), r),
+                                  ref_hlhe(values.max(), r))
+    assert discretize(np.zeros(0), r).size == 0
+    with pytest.raises(ValueError, match="normalized"):
+        discretize(values - 1.0, r)
+    with pytest.raises(ValueError, match="r must be"):
+        hlhe_representatives(4.0, -1)
 
 
 class _FixedRouter(HashRouter):
@@ -129,10 +208,10 @@ _THEOREM2_DESTS = [0, 1, 1, 1, 0, 1, 0, 0]
 
 def test_theorem2_instance_is_the_reference_planners_own():
     """On the instance the reference's property test flips on, the port's
-    Mixed plans what the reference's Mixed plans, to the bit, and both miss
-    the test's claim against the reference's Simple by the same margin: the
-    defect lies in the planner both packages share, not in the port. (The
-    port has no Simple yet: ROADMAP Queue A item 4.)"""
+    Mixed and Simple plan what the reference's Mixed and Simple plan, to the
+    bit, and the port's Mixed misses the test's claim against the port's
+    own Simple by the reference's margin: the defect lies in the planner
+    both packages share, not in the port."""
     keys = np.arange(8, dtype=np.int64)
     cost, mem = np.array(_THEOREM2_COST), np.array(_THEOREM2_MEM)
     ref_a = RefAssignment(RefModHash(2, seed=37 % 7))
@@ -140,15 +219,17 @@ def test_theorem2_instance_is_the_reference_planners_own():
     ref_stats = RefKeyStats(keys=keys, cost=cost, mem=mem)
     cfg_args = dict(theta_max=0.0, table_max=4)
     want = ref_mixed(ref_stats, ref_a, RefConfig(**cfg_args))
-    got = mixed(KeyStats(keys=keys, cost=cost, mem=mem),
-                Assignment(_FixedRouter(_THEOREM2_DESTS)),
-                BalanceConfig(**cfg_args))
+    port_stats = KeyStats(keys=keys, cost=cost, mem=mem)
+    port_a = Assignment(_FixedRouter(_THEOREM2_DESTS))
+    got = mixed(port_stats, port_a, BalanceConfig(**cfg_args))
     _assert_same_plan(got, want)
-    th_simple = ref_simple(ref_stats, ref_a, RefConfig(**cfg_args)).theta
+    port_simple = simple(port_stats, port_a, BalanceConfig(**cfg_args))
+    _assert_same_plan(port_simple,
+                      ref_simple(ref_stats, ref_a, RefConfig(**cfg_args)))
+    th_simple = port_simple.theta
     # the reference test's else-branch (Simple misses theta_max = 0 too)
     # asks for Mixed's theta <= Simple's + 0.02; both Mixeds exceed it
     assert th_simple > 0.0
     assert got.theta == want.theta > th_simple + 0.02
-    np.testing.assert_allclose([got.theta, th_simple],
-                               [0.07272102461446749, 0.016941071972724826],
-                               rtol=1e-12)
+    assert th_simple == 0.016941071972724826
+    np.testing.assert_allclose(got.theta, 0.07272102461446749, rtol=1e-12)
