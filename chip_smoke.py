@@ -911,6 +911,306 @@ def _drive_sketch(cfg: Config, algorithm: str, intervals: int, device,
             "reports_match_cpu": True}, dev
 
 
+# -- the router-merge topology ---------------------------------------------------
+
+#: the topology phase's intervals: a checkpoint after ``TOPO_CHECKPOINT_AFTER``
+#: of ``TOPO_INTERVALS``, then a restore and a replay of the rest
+TOPO_INTERVALS = 4
+TOPO_CHECKPOINT_AFTER = 2
+
+
+def make_topology(cfg: Config, device, substrate: str, state_backend: str):
+    """The PKG papers' two-step word count at the stream cell's deployment:
+    PartialWordCount under PKG, then WordCount under Mixed (seeded
+    ``cfg.seed + 1``)."""
+    from repro_torch import (Hash32, PartialWordCount, WordCount,
+                             router_merge_topology)
+    return router_merge_topology(
+        PartialWordCount(), WordCount(), cfg.n_tasks, cfg.theta_max,
+        algorithm="pkg", merge_algorithm="mixed", hash_cls=Hash32,
+        substrate=substrate, state_backend=state_backend,
+        window=cfg.window, table_max=cfg.table_max, seed=cfg.seed,
+        device=device)
+
+
+def pack_bytes(ckpt) -> int:
+    """Host bytes of a topology checkpoint's packs (their arrays)."""
+    return int(sum(a.nbytes for st in ckpt.stages for p in st.packs
+                   for a in (p.keys, p.vals, p.sizes, p.present, p.col_iv)))
+
+
+def _same_topology_report(got, want) -> None:
+    """Hold a topology report: the merge stage exactly, the split stage's
+    integer fields exactly and its loads and θ within 1e-6 relative (its
+    step-1 stats are float32 on the card)."""
+    if (got.tuples_in, got.stage_tuples, got.buffered) != \
+            (want.tuples_in, want.stage_tuples, want.buffered):
+        raise AssertionError(f"interval {want.interval}: tuple counts "
+                             "differ")
+    (gs, gm), (ws, wm) = got.stage_reports, want.stage_reports
+    _same_report(gm, wm, exact=True)
+    for f in ("interval", "tuples", "table_size", "migrated_bytes",
+              "buffered"):
+        if getattr(gs, f) != getattr(ws, f):
+            raise AssertionError(f"split, interval {ws.interval}: {f} "
+                                 "differs")
+    np.testing.assert_allclose(gs.task_loads, ws.task_loads, rtol=1e-6)
+    np.testing.assert_allclose(gs.theta, ws.theta, rtol=1e-6)
+
+
+def phase_topology(cfg: Config, device, sync) -> tuple:
+    """``router_merge_topology`` on ``device``: the split stage (PKG over the
+    columnar store, step-1 stats through ``key_stats``) feeding the merge
+    stage (Mixed over the device ring, the dense route through the routing
+    kernel), both chosen by ``state_backend="auto"``. Held against the same
+    topology on the CPU (columnar, numpy) and, for exactness, against a
+    single-stage WordCount under Mixed on the same keys; checkpointed after
+    ``TOPO_CHECKPOINT_AFTER`` intervals, restored after the last and the
+    rest replayed. Returns (metrics, per-stage launches, the merge stage's
+    last table and dense domain, one split interval's stats input)."""
+    from repro_torch.kernels import RoutingTable, key_stats, route_keys
+    from repro_torch.streams import WorkloadGen
+    from repro_torch.streams import backends as backends_mod
+    from repro_torch.streams import device as device_mod
+    topo = make_topology(cfg, device, "kernels", "auto")
+    split, merge = topo["split"], topo["merge"]
+    # on a card; on the CPU (a rehearsal) auto keeps both on the columnar
+    # store
+    want = ("columnar",
+            "device" if merge.device.type == "cuda" else "columnar")
+    if (split.state_backend, merge.state_backend) != want:
+        raise AssertionError(f"auto chose {split.state_backend} and "
+                             f"{merge.state_backend}, not {want}")
+    oracle = make_topology(cfg, "cpu", "numpy", "columnar")
+    gens = [WorkloadGen(k=cfg.k, z=cfg.z, f=cfg.f, seed=cfg.seed,
+                        window=cfg.window) for _ in range(2)]
+    spans = {k: [] for k in ("split_ms", "merge_ms", "route_ms",
+                             "table_build_ms", "table_upload_ms",
+                             "kernel_ms", "pkg_route_ms")}
+    launches = {"split": {"route_keys": 0, "key_stats": 0},
+                "merge": {"route_keys": 0, "key_stats": 0}}
+    stats_input = []
+
+    def counted(stage, name):
+        run = stage.process_interval_emits
+
+        def wrapper(*a, **kw):
+            r0, s0 = route_keys.launches, key_stats.launches
+            out = spanned(run, spans[f"{name}_ms"], sync)(*a, **kw)
+            launches[name]["route_keys"] += route_keys.launches - r0
+            launches[name]["key_stats"] += key_stats.launches - s0
+            return out
+        stage.process_interval_emits = wrapper
+
+    def recording_key_sums(keys, w1, w2, num):
+        stats_input[:] = [keys, w1, w2, num]
+        return key_sums(keys, w1, w2, num)
+
+    counted(split, "split")
+    counted(merge, "merge")
+    split._dest_batch = spanned(split._dest_batch, spans["pkg_route_ms"],
+                                sync)
+    # the merge stage's dense route and its parts, patched where the fleet
+    # (rebuilt on restore) looks them up
+    route_dense = device_mod.DeviceStateFleet.route_dense
+    build, to, route = RoutingTable.build, RoutingTable.to, \
+        device_mod.route_keys
+    key_sums = backends_mod.key_sums
+    device_mod.DeviceStateFleet.route_dense = spanned(
+        route_dense, spans["route_ms"], sync)
+    RoutingTable.build = classmethod(spanned(build.__func__,
+                                             spans["table_build_ms"], sync))
+    RoutingTable.to = spanned(to, spans["table_upload_ms"], sync)
+    device_mod.route_keys = spanned(route, spans["kernel_ms"], sync)
+    backends_mod.key_sums = recording_key_sums
+    try:
+        metrics, keys_by_iv, first_outputs = _drive_topology(
+            cfg, topo, oracle, gens, sync)
+    finally:
+        device_mod.DeviceStateFleet.route_dense = route_dense
+        RoutingTable.build, RoutingTable.to = build, to
+        device_mod.route_keys = route
+        backends_mod.key_sums = key_sums
+    # the exactness witness: a single-stage WordCount under Mixed on the
+    # same keys (the device ring with the plain route: no kernel launch)
+    witness = make_stage(cfg, "device", "numpy", merge.device)
+    for keys in keys_by_iv:
+        witness.process_interval_arrays(keys)
+    if first_outputs[:2] != (witness.outputs, witness.emitted_sum):
+        raise AssertionError("the merge stage's counts are not the "
+                             "single-stage WordCount's")
+    metrics.update({
+        "split_wall_ms": spans["split_ms"],
+        "pkg_route_ms": spans["pkg_route_ms"],
+        "merge_wall_ms": spans["merge_ms"],
+        "route_dense_ms": spans["route_ms"],
+        "route_dense_parts_ms": {k: spans[k] for k in (
+            "table_build_ms", "table_upload_ms", "kernel_ms")},
+        "merge_matches_single_stage": True})
+    table = merge.controller.assignment
+    pad = max(merge._table_capacity, 128,
+              1 << max(0, table.table_size - 1).bit_length())
+    domain = getattr(merge.backend, "fleet", None)
+    route_input = (*table.table_arrays(pad),
+                   domain.domain if domain is not None else 0)
+    return metrics, launches, route_input, stats_input
+
+
+def _drive_topology(cfg: Config, topo, oracle, gens, sync) -> tuple:
+    """Checks 1, 3 and 4 of the phase; returns (metrics, each interval's
+    keys, the merge stage's outputs, emitted sum and table after them)."""
+    merge, split = topo["merge"], topo["split"]
+    wall_ms, keys_by_iv, first, versions = [], [], [], []
+
+    def run(keys):
+        versions.append((len(wall_ms) >= TOPO_INTERVALS,
+                         merge.controller.assignment_version))
+        sync()
+        t0 = time.perf_counter()
+        rep = topo.process_interval(keys)
+        sync()
+        wall_ms.append((time.perf_counter() - t0) * 1e3)
+        return rep
+
+    ckpt = None
+    checkpoint_ms = restore_ms = 0.0
+    for i in range(TOPO_INTERVALS):
+        drawn = []
+        for gen, t in zip(gens, (topo, oracle)):
+            if i:
+                gen.interval(t["merge"].controller.assignment)
+            drawn.append(gen.draw_tuples(cfg.tuples).astype(np.int64))
+        if not np.array_equal(drawn[0], drawn[1]):
+            raise AssertionError(f"interval {i + 1}: the card and its "
+                                 "oracle drew different keys")
+        keys = drawn[0]
+        keys_by_iv.append(keys)
+        rep = run(keys)
+        want = oracle.process_interval(keys)
+        for r in rep.stage_reports:
+            _finite_report(r, cfg.n_tasks)
+        _same_topology_report(rep, want)
+        if merge.controller.assignment.table != \
+                oracle["merge"].controller.assignment.table:
+            raise AssertionError(f"interval {i + 1}: merge tables differ")
+        first.append(rep)
+        if i + 1 == TOPO_CHECKPOINT_AFTER:
+            sync()
+            t0 = time.perf_counter()
+            ckpt = topo.checkpoint()
+            sync()
+            checkpoint_ms = (time.perf_counter() - t0) * 1e3
+    for stage, want in ((merge, oracle["merge"]), (split, oracle["split"])):
+        if (stage.outputs != want.outputs
+                or stage.emitted_sum != want.emitted_sum):
+            raise AssertionError("outputs differ from the CPU oracle")
+    # routers never plan
+    for r in split.reports:
+        if r.migrated_bytes or r.table_size or r.buffered:
+            raise AssertionError(f"split, interval {r.interval}: the router "
+                                 "planned")
+    if split.controller.triggered_intervals():
+        raise AssertionError("the split stage triggered")
+    first_outputs = (dict(merge.outputs), merge.emitted_sum,
+                     dict(merge.controller.assignment.table))
+    plans = [ev.result.plan_time_s * 1e3 for ev in merge.controller.history
+             if ev.result is not None]
+    sync()
+    t0 = time.perf_counter()
+    topo.restore(ckpt)
+    sync()
+    restore_ms = (time.perf_counter() - t0) * 1e3
+    for i in range(TOPO_CHECKPOINT_AFTER, TOPO_INTERVALS):
+        rep = run(keys_by_iv[i])
+        _same_topology_report(rep, first[i])
+    if (dict(merge.outputs), merge.emitted_sum,
+            dict(merge.controller.assignment.table)) != first_outputs:
+        raise AssertionError("the replay after restore differs")
+    pass_ms = wall_ms[:TOPO_INTERVALS]
+    return {
+        "intervals": TOPO_INTERVALS, "replayed": TOPO_INTERVALS
+        - TOPO_CHECKPOINT_AFTER, "tuples_per_interval": cfg.tuples,
+        "keys": cfg.k, "window": cfg.window,
+        "backends": {"split": split.state_backend,
+                     "merge": merge.state_backend},
+        "topology_wall_ms": wall_ms,
+        "tuples_per_s": [cfg.tuples / ms * 1e3 for ms in wall_ms],
+        "tuples_per_s_median": cfg.tuples / statistics.median(pass_ms) * 1e3,
+        "throughput_model": [r.throughput for r in first],
+        "split_theta": [r.stage_reports[0].theta for r in first],
+        "split_task_loads": [r.stage_reports[0].task_loads.tolist()
+                             for r in first],
+        "merge_theta": [r.stage_reports[1].theta for r in first],
+        "merge_table_size": [r.stage_reports[1].table_size for r in first],
+        "merge_plan_ms": plans,
+        "checkpoint_ms": checkpoint_ms, "restore_ms": restore_ms,
+        "checkpoint_host_bytes": pack_bytes(ckpt),
+        "checkpoint_keys": [sum(int(p.keys.size) for p in st.packs)
+                            for st in ckpt.stages],
+        "versions_routed": sorted(set(versions)),
+        "reports_match_cpu": True, "replay_matches": True}, \
+        keys_by_iv, first_outputs
+
+
+def check_topology_launches(metrics: dict, launches: dict) -> None:
+    """Check 5 of the phase: ``key_stats`` once per split-stage interval,
+    the routing kernel at least once per assignment version the merge stage
+    routed with, and neither stage launching the other's kernel."""
+    split_intervals = len(metrics["split_wall_ms"])
+    if launches["split"]["route_keys"] or launches["merge"]["key_stats"]:
+        raise AssertionError(f"a stage launched another stage's kernel: "
+                             f"{launches}")
+    if launches["split"]["key_stats"] != split_intervals:
+        raise AssertionError(
+            f"key_stats launched {launches['split']['key_stats']} times in "
+            f"{split_intervals} split-stage intervals")
+    versions = len(metrics["versions_routed"])
+    if not 0 < versions <= launches["merge"]["route_keys"]:
+        raise AssertionError(
+            f"{launches['merge']['route_keys']} routing launches for "
+            f"{versions} assignment versions")
+
+
+def topology_stats_row(timer: Timer, stats_input) -> dict:
+    """``key_stats`` on one split-stage interval's stats input, the
+    two-weight launch the split stage makes, against two plain calls."""
+    import torch
+    from repro_torch.kernels import key_stats_plain
+    from repro_torch.kernels.key_stats import key_sums
+    keys, w1, w2, num = stats_input
+    s1, s2 = key_sums(keys, w1, w2, num)
+    pfreq, p1 = key_stats_plain(keys, w1, num)
+    p2 = key_stats_plain(keys, w2, num)[1]
+    err = 0.0
+    for got, want in ((s1, p1), (s2, p2)):
+        diff = (got - want).abs()
+        if bool((diff > reorder_bound(torch, pfreq, want)).any()):
+            raise AssertionError("key_stats[topology_split]: kernel and "
+                                 "plain sums differ beyond float32 "
+                                 "reordering")
+        err = max(err, float(diff.max()))
+    n = keys.numel()
+    valid = (keys >= 0) & (keys < num)
+    mk = keys[valid]
+    m1, m2 = (w[valid].to(torch.float32) for w in (w1, w2))
+    ms = timer.ms(lambda: key_sums(keys, w1, w2, num))
+    lower = bound(n * (4 + w1.element_size() + w2.element_size())
+                  + 8 * num, STATS_OPS_PER_TUPLE * n)
+    return {
+        "name": "key_stats[topology_split]", "route": "cuda",
+        "source": "src/repro_torch/csrc/key_stats.cu",
+        "replaces": "src/repro/kernels/key_stats.py:31",
+        "shape": {"n": n, "num_keys": num, "weights": 2,
+                  "cost_dtype": str(w1.dtype).split(".")[-1]},
+        "max_abs_err": err, "ms": ms,
+        "plain_ms": timer.ms(lambda: (key_stats_plain(keys, w1, num),
+                                      key_stats_plain(keys, w2, num))),
+        **lower, "bound_share": lower["bound_ms"] / ms,
+        "library_ms": timer.ms(lambda: (
+            torch.bincount(mk, weights=m1, minlength=num),
+            torch.bincount(mk, weights=m2, minlength=num)))}
+
+
 # -- phases 5 and 6: the serving slices -----------------------------------------
 
 class FlashSpy:
@@ -1443,6 +1743,26 @@ def main() -> int:
           "seconds": time.perf_counter() - t0})
 
     t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    route_keys.launches = 0
+    key_stats.launches = 0
+    topology, topo_launches, (tk, td, domain), stats_input = \
+        phase_topology(cfg, "cuda", sync)
+    topo_peak = torch.cuda.max_memory_allocated()
+    check_topology_launches(topology, topo_launches)
+    timer = Timer(torch, cfg.reps)
+    rows.append(routing_row(
+        timer, "routing_lookup[dense,topology]",
+        torch.arange(domain + 1, dtype=torch.int32, device="cuda"),
+        RoutingTable.from_arrays(tk, td, torch.device("cuda")),
+        dataclasses.replace(cfg, seed=cfg.seed + 1)))
+    rows.append(topology_stats_row(timer, stats_input))
+    del timer, stats_input
+    emit({"phase": "topology", **topology, "launches": topo_launches,
+          "kernel_rows": rows[-2:], "device_memory_peak_bytes": topo_peak,
+          "card": nvidia_smi_line(), "seconds": time.perf_counter() - t0})
+
+    t0 = time.perf_counter()
     from repro_torch.configs import get_config
     serve = phase_serve(torch, get_config(scfg.arch), scfg, "cuda", sync)
     want = {str(w): n for w, n in sorted(
@@ -1481,6 +1801,10 @@ def main() -> int:
 
     launches = {"routing_lookup[dense]": main_launches["route_keys"],
                 "routing_lookup[dense,sketch]": sketch_launches,
+                "routing_lookup[dense,topology]":
+                    topo_launches["merge"]["route_keys"],
+                "key_stats[topology_split]":
+                    topo_launches["split"]["key_stats"],
                 "routing_lookup[per_tuple]": stats_launches["route_keys"],
                 "key_stats[zipf_tuples]": stats_launches["key_stats"],
                 "key_stats[stats_path]": stats_launches["key_stats"],

@@ -4,9 +4,12 @@ The paper's interval protocol (Fig. 5) end to end: routing F(k) (Eq. 1),
 one interval's state update on a device-resident window ring, step-1
 per-key statistics (exact, or a count-min/SpaceSaving sketch), the
 controller's trigger and plan (Mixed, Alg. 4, by default, or any of the
-paper's other table planners), and relabel-only migration. The two TPU kernels on that path — the routing
-lookup and the per-key statistics histogram — are hand-written CUDA C++
-(``csrc/``), each beside its plain PyTorch version.
+paper's other table planners), and relabel-only migration. The two TPU
+kernels on that path — the routing lookup and the per-key statistics
+histogram — are hand-written CUDA C++ (``csrc/``), each beside its plain
+PyTorch version. Around it: the competing choice routers (PKG, the Power of
+Both Choices, W-Choices) on the host, multi-stage topologies (a router's
+split stage feeding a merge stage) and checkpointed recovery.
 
 The serving slice of the model substrate sits beside it: attention LMs
 with dense or MoE MLPs (:mod:`.models`, :mod:`.configs`), SkewShield expert
@@ -19,11 +22,16 @@ This package imports torch, numpy and the standard library only; it keeps
 its own copy of the host control plane and of the model code.
 """
 
-from .core import (Assignment, BalanceConfig, Hash32, KeyStats,
-                   RebalanceController)
-from .streams import (KeyedStage, MergeCounts, WindowedSelfJoin, WordCount,
-                      WorkloadGen)
+from .core import (Assignment, BalanceConfig, ConsistentHash, Hash32,
+                   KeyStats, ModHash, RebalanceController, resolve_strategy,
+                   strategy_names)
+from .streams import (Filter, KeyedStage, MergeCounts, PartialWordCount,
+                      StageSpec, Topology, WindowedSelfJoin, WordCount,
+                      WorkloadGen, keyed_stage, router_merge_topology)
 
-__all__ = ["Assignment", "BalanceConfig", "Hash32", "KeyStats",
-           "RebalanceController", "KeyedStage", "MergeCounts",
-           "WindowedSelfJoin", "WordCount", "WorkloadGen"]
+__all__ = ["Assignment", "BalanceConfig", "ConsistentHash", "Hash32",
+           "KeyStats", "ModHash", "RebalanceController", "resolve_strategy",
+           "strategy_names", "Filter", "KeyedStage", "MergeCounts",
+           "PartialWordCount", "StageSpec", "Topology", "WindowedSelfJoin",
+           "WordCount", "WorkloadGen", "keyed_stage",
+           "router_merge_topology"]

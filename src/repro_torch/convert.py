@@ -13,7 +13,7 @@ Snapshot layout (a dict)::
     col_iv             (window+1,) int64 — the device fleet's ring clock
     table_keys,        the assignment's override table as aligned arrays
     table_dests        (-1 keys are empty slots)
-    n_dest, hash_seed  the Hash32 router
+    n_dest, hash_seed  the base hash router (Hash32 unless ``hash`` says)
     assignment_version the controller's version counter
     last_stats         {"keys", "cost", "mem", "freq"[, "base_loads"]} or
                        None ("base_loads": a sketch-mode snapshot's frozen
@@ -30,6 +30,21 @@ A stage whose controller runs ``stats_mode="sketch"`` may also carry
 numbers): the count-min planes, the SpaceSaving tracker and the
 per-destination totals, which the port's sketch then continues from.
 
+Two optional entries cover the choice routers' split stages:
+
+    hash               ``"hash32"`` (the default) or ``"modhash"``: which
+                       base router ``hash_seed`` belongs to
+    router             a JAX choice router's live state: ``name`` (``"pkg"``,
+                       ``"potc"`` or ``"wchoices"``), ``seed``,
+                       ``n_choices``, ``chunk`` and ``loads`` (per worker);
+                       for ``"potc"`` also ``n_sources``, ``src_loads``
+                       ((n_sources, n_dest)) and ``pos``; for
+                       ``"wchoices"`` also ``head`` (the sorted head keys),
+                       ``head_threshold`` and ``head_capacity``
+
+A PKG split stage caught mid-stream in the JAX package then routes every
+later tuple as it would have there.
+
 :func:`load_reference_params` carries a model's weights across: a nested
 dict of numpy arrays (``np.asarray`` of each leaf of a JAX parameter
 pytree) becomes the same tree of torch tensors.
@@ -40,7 +55,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .core.balancer import Assignment, Hash32, KeyStats
+from .core.balancer import (Assignment, Hash32, KeyStats, ModHash,
+                            resolve_strategy)
 from .streams.backends import DeviceBackend
 from .streams.device import resolve_device
 from .streams.engine import KeyedStage
@@ -49,8 +65,9 @@ from .streams.state import ColumnarPack
 
 def load_reference_state(stage: KeyedStage, snapshot: dict) -> None:
     """Install ``snapshot`` (see the module docstring) into ``stage``, which
-    must be fresh (no interval processed), have ``n_dest`` tasks and route
-    with ``Hash32(n_dest, hash_seed)``."""
+    must be fresh (no interval processed), have ``n_dest`` tasks, route with
+    the snapshot's base hash router and seed, and, when the snapshot
+    carries a ``router``, run that router."""
     if stage._interval or stage.total_state_keys():
         raise ValueError("load_reference_state needs a fresh stage")
     n_dest = int(snapshot["n_dest"])
@@ -61,10 +78,23 @@ def load_reference_state(stage: KeyedStage, snapshot: dict) -> None:
 
     ctrl = stage.controller
     router = ctrl.assignment.hash_router
-    if not (isinstance(router, Hash32)
+    hash_name = snapshot.get("hash", "hash32")
+    hash_cls = {"hash32": Hash32, "modhash": ModHash}.get(hash_name)
+    if hash_cls is None:
+        raise ValueError(f"unknown hash {hash_name!r}; choose 'hash32' or "
+                         "'modhash'")
+    if not (type(router) is hash_cls
             and router.seed == int(snapshot["hash_seed"])):
-        raise ValueError("the stage's router must be Hash32 with the "
-                         "snapshot's seed")
+        raise ValueError(f"the stage's router must be {hash_cls.__name__} "
+                         "with the snapshot's seed")
+    choice = snapshot.get("router")
+    if choice is not None:
+        if ctrl.strategy.name != choice["name"]:
+            raise ValueError(f"the snapshot carries a {choice['name']!r} "
+                             f"router; the stage runs "
+                             f"{ctrl.strategy.name!r}")
+        ctrl.use_algorithm(_choice_router(choice))
+        _load_router_state(ctrl.strategy, choice, n_dest)
     sketch = snapshot.get("sketch")
     if sketch is not None:
         if ctrl.sketch is None:
@@ -114,6 +144,36 @@ def load_reference_state(stage: KeyedStage, snapshot: dict) -> None:
         fleet.col_iv = np.asarray(snapshot["col_iv"], dtype=np.int64).copy()
     for store, pack in zip(stage.stores, packs):
         store.install_batch(pack)
+
+
+def _choice_router(state: dict):
+    """A fresh router configured as the snapshot's ``router`` entry says."""
+    kwargs = dict(n_choices=int(state["n_choices"]),
+                  chunk=int(state["chunk"]), seed=int(state["seed"]))
+    if state["name"] == "potc":
+        kwargs["n_sources"] = int(state["n_sources"])
+    if state["name"] == "wchoices":
+        kwargs["head_threshold"] = float(state["head_threshold"])
+        kwargs["head_capacity"] = int(state["head_capacity"])
+    return type(resolve_strategy(state["name"]))(**kwargs)
+
+
+def _load_router_state(router, state: dict, n_dest: int) -> None:
+    """Give a bound router the snapshot's live loads (``bind`` zeroed
+    them) and, for W-Choices, its head set."""
+    loads = np.asarray(state["loads"], dtype=np.float64)
+    if loads.shape != (n_dest,):
+        raise ValueError(f"router loads have shape {loads.shape}, not "
+                         f"({n_dest},)")
+    if state["name"] == "potc":
+        router._src_loads = np.array(state["src_loads"], dtype=np.float64)
+        router._pos = int(state["pos"])
+        if not np.array_equal(router.loads, loads):
+            raise ValueError("potc: src_loads do not sum to loads")
+    else:
+        router._loads = loads.copy()
+    if state["name"] == "wchoices":
+        router._head = np.asarray(state["head"], dtype=np.int64).copy()
 
 
 def _tensor(a: np.ndarray, device: torch.device) -> torch.Tensor:

@@ -1,8 +1,15 @@
 """Host control plane: the balancer and the interval rebalance controller."""
 
-from .balancer import (Assignment, BalanceConfig, Hash32, KeyStats,
-                       RebalanceResult)
+from . import balancer
+from .balancer import (Assignment, BalanceConfig, ConsistentHash, Hash32,
+                       KeyStats, ModHash, PartialKeyGrouping,
+                       PartitionStrategy, PowerOfBothChoices, RebalanceResult,
+                       TablePlanner, WChoices, metrics, resolve_strategy,
+                       strategy_names)
 from .controller import ControllerEvent, RebalanceController
 
-__all__ = ["Assignment", "BalanceConfig", "Hash32", "KeyStats",
-           "RebalanceResult", "ControllerEvent", "RebalanceController"]
+__all__ = ["balancer", "Assignment", "BalanceConfig", "ConsistentHash",
+           "Hash32", "KeyStats", "ModHash", "RebalanceResult", "metrics",
+           "ControllerEvent", "RebalanceController", "PartitionStrategy",
+           "TablePlanner", "PartialKeyGrouping", "PowerOfBothChoices",
+           "WChoices", "resolve_strategy", "strategy_names"]

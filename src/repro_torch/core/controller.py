@@ -13,6 +13,7 @@ Protocol per interval (paper's numbered steps):
 
 from __future__ import annotations
 
+import copy
 import dataclasses
 from typing import Callable, List, Optional
 
@@ -99,18 +100,17 @@ class RebalanceController:
         """Install an ``algorithm=`` spec: a registered strategy name, a bare
         planner callable ``(stats, assignment, config) -> RebalanceResult``,
         or a configured
-        :class:`~repro_torch.core.balancer.strategy.PartitionStrategy`."""
+        :class:`~repro_torch.core.balancer.strategy.PartitionStrategy`
+        (a table planner or a choice router)."""
         strategy = resolve_strategy(algorithm)
-        if strategy.is_router:
-            raise ValueError(
-                f"algorithm {strategy.name!r} is a choice router; choice "
-                "routers are not ported yet")
         strategy.bind(self.assignment)
         self.strategy = strategy
         self.algorithm_name = strategy.name
 
     # -- paper step 2: trigger decision --------------------------------------
     def should_trigger(self, stats: KeyStats) -> bool:
+        if self.strategy.is_router:
+            return False   # routers balance per tuple; nothing to (re)plan
         return metrics.theta_for(stats, self.assignment) > self.config.theta_max
 
     def triggered_intervals(self) -> List[int]:
@@ -175,6 +175,17 @@ class RebalanceController:
             stats = self._sketch.snapshot(self.assignment)
             self._sketch.end_interval()
         self.last_stats = stats
+        if self.strategy.is_router:
+            # choice routers balance per tuple and never produce a plan: the
+            # interval boundary is measurement only. theta reflects the
+            # router's own routed-tuple loads; the head-set hook lets
+            # W-Choices refresh its heavy hitters from the step-1 stats.
+            self.strategy.on_stats(stats)
+            loads = self.strategy.loads
+            th = metrics.theta(loads) if loads.size else 0.0
+            ev = ControllerEvent(self._interval, False, th)
+            self.history.append(ev)
+            return ev
         th = metrics.theta_for(stats, self.assignment)
         if not force and th <= self.config.theta_max:
             ev = ControllerEvent(self._interval, False, th)
@@ -190,6 +201,53 @@ class RebalanceController:
         self.history.append(ev)
         return ev
 
+    # -- checkpoint seam (repro_torch.streams.checkpoint) ---------------------
+    def state_dict(self) -> dict:
+        """Everything a recovery needs to resume the protocol bit-identically:
+        the assignment (routing table + hash), the version counter that keys
+        device routing caches, the interval clock, the event history, the
+        planned-on stats, the strategy (routers carry live per-tuple load
+        state), and the sketch measurement state when in sketch mode.
+
+        The returned dict owns its data (copies/deepcopies), so it stays
+        valid however far the live controller advances afterwards, and it
+        pickles for the on-disk manifest path.
+        """
+        return {
+            "assignment": self.assignment.copy(),
+            "assignment_version": self.assignment_version,
+            "interval": self._interval,
+            "history": list(self.history),
+            "last_stats": self.last_stats,
+            "strategy": copy.deepcopy(self.strategy),
+            "stats_mode": self.stats_mode,
+            "sketch": (self._sketch.state_dict()
+                       if self._sketch is not None else None),
+        }
+
+    def load_state_dict(self, state: dict) -> None:
+        """Restore a :meth:`state_dict` snapshot. Deep-copies on the way in
+        as well, so one checkpoint can be restored any number of times.
+
+        The strategy is restored as-is, NOT re-``bind()``-ed: bind resets a
+        choice router's load estimates, which are exactly the state the
+        checkpoint preserves.
+        """
+        if state["stats_mode"] != self.stats_mode:
+            raise ValueError(
+                f"stats_mode mismatch: checkpoint was taken in "
+                f"{state['stats_mode']!r} mode, controller runs "
+                f"{self.stats_mode!r}")
+        self.assignment = state["assignment"].copy()
+        self.assignment_version = int(state["assignment_version"])
+        self._interval = int(state["interval"])
+        self.history = list(state["history"])
+        self.last_stats = state["last_stats"]
+        self.strategy = copy.deepcopy(state["strategy"])
+        self.algorithm_name = self.strategy.name
+        if state["sketch"] is not None:
+            self._sketch.load_state_dict(state["sketch"])
+
     # -- elastic scale-out/in (paper Fig. 15) ---------------------------------
     def rescale(self, n_dest: int, stats: KeyStats) -> ControllerEvent:
         """Change the number of workers and rebalance onto the new fleet.
@@ -198,6 +256,12 @@ class RebalanceController:
         the hash router is swapped for the same family at the new size. The
         regular algorithm then restores balance with minimal migration.
         """
+        if self.strategy.is_router:
+            raise ValueError(
+                f"algorithm {self.algorithm_name!r} is a choice router: "
+                "per-key state is split across candidate workers, so the "
+                "assignment-driven rescale/reconciliation protocol does not "
+                "apply; rebuild the stage at the new width instead")
         old_assignment = self.assignment
         new_router = old_assignment.hash_router.with_n_dest(n_dest)
         table = {k: d for k, d in old_assignment.table.items() if d < n_dest}

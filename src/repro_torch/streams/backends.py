@@ -17,6 +17,8 @@ The protocol (one instance per stage)::
                                            scale_to
     collect_stats(...)                  -> KeyStats (paper step 1), or
                                            SKETCH_PENDING in sketch mode
+    checkpoint() / restore(ckpt)        -> cloned packs per task (+ extras);
+                                           see :mod:`.checkpoint`
 
 plus two classmethod selection hooks: :meth:`StateBackend.check` (raise
 ``ValueError`` when an explicit request is unsupported) and
@@ -31,7 +33,9 @@ Two backends implement the protocol:
   ``key_stats`` kernel.
 * :class:`DeviceBackend` — the dense ring of :mod:`.device` on the stage's
   device: one step per interval, relabel-only migration, the dense route
-  through the routing kernel on the ``"kernels"`` substrate.
+  through the routing kernel on the ``"kernels"`` substrate. It refuses
+  choice routers: its dense-dest table is keyed on ``assignment_version``,
+  and a router's destinations are not a function of the key.
 """
 
 from __future__ import annotations
@@ -90,8 +94,9 @@ def resolve_backend(name: str, operator, controller,
 
     Explicit names validate via :meth:`StateBackend.check` (raising
     ``ValueError`` with the reason); ``"auto"`` walks device > columnar: the
-    device ring when the operator has device closed forms, the router is
-    Hash32 and the stage runs on a CUDA device; else the columnar store."""
+    device ring when the operator has device closed forms, the strategy is
+    a table planner, the router is Hash32 and the stage runs on a CUDA
+    device; else the columnar store."""
     if name != "auto":
         cls = get_backend(name)
         cls.check(operator, controller)
@@ -171,6 +176,40 @@ class StateBackend:
 
     def install_batch(self, task: int, pack) -> None:
         self.stage.stores[task].install_batch(pack)
+
+    # -- checkpoint/restore (repro_torch.streams.checkpoint) -------------------
+    def checkpoint(self) -> dict:
+        """Snapshot every task's state as cloned packs, riding the
+        extract/install contract: extract all held keys, clone the pack,
+        install it straight back. Observationally transparent — extraction
+        preserves key order, and the closed forms are order-free sums — so a
+        checkpointed run stays bit-identical to an uncheckpointed one.
+
+        Returns ``{"packs": [pack_per_task, ...], **backend_extras}``.
+        """
+        stage = self.stage
+        packs = []
+        for task, store in enumerate(stage.stores):
+            held, _ = store.sizes_arrays()
+            pack = self.extract_batch(task, held)
+            snapshot = pack.clone()
+            self.install_batch(task, pack)
+            packs.append(snapshot)
+        return {"packs": packs}
+
+    def restore(self, ckpt) -> None:
+        """Rebuild the store fleet from a :class:`StageCheckpoint`'s packs.
+
+        Fresh stores accept any interval clock, so restoring an older
+        checkpoint after the live fleet advanced is always legal; the
+        stage-level counters are rewound by ``restore_stage``.
+        """
+        stage = self.stage
+        stage.stores = []
+        for _ in ckpt.packs:
+            stage.stores.append(self.new_store())
+        for store, pack in zip(stage.stores, ckpt.packs):
+            store.install_batch(pack.clone())
 
     # -- paper step 1 ----------------------------------------------------------
     def collect_stats(self, acc_keys, acc_cost, acc_freq,
@@ -400,11 +439,14 @@ class DeviceBackend(StateBackend):
     def __init__(self, stage):
         super().__init__(stage)
         self._device_seed = stage.controller.assignment.hash_router.seed
-        self._fleet = DeviceStateFleet(stage.window,
-                                       stage.operator.columnar_spec,
-                                       stage.device)
+        self._fleet = self._make_fleet()
         self._dest_dense_cache = None   # (cache key, device dests, host dests)
         self._views_made = 0
+
+    def _make_fleet(self) -> DeviceStateFleet:
+        stage = self.stage
+        return DeviceStateFleet(stage.window, stage.operator.columnar_spec,
+                                stage.device)
 
     @property
     def fleet(self) -> DeviceStateFleet:
@@ -412,6 +454,13 @@ class DeviceBackend(StateBackend):
 
     @classmethod
     def check(cls, operator, controller):
+        if controller.strategy.is_router:
+            raise ValueError(
+                f"state_backend={cls.name!r} requires an assignment-driven "
+                f"strategy: algorithm {controller.algorithm_name!r} routes "
+                "per tuple on live loads, but the device table cache is "
+                "keyed on assignment_version (destinations must be a pure "
+                "function of the key between rebalances)")
         if getattr(operator, "device_mode", None) is None \
                 or getattr(operator, "columnar_spec", None) is None:
             raise ValueError(
@@ -426,7 +475,8 @@ class DeviceBackend(StateBackend):
 
     @classmethod
     def auto_eligible(cls, operator, controller, device):
-        return (getattr(operator, "columnar_spec", None) is not None
+        return (not controller.strategy.is_router
+                and getattr(operator, "columnar_spec", None) is not None
                 and getattr(operator, "device_mode", None) is not None
                 and _is_hash32(controller)
                 and device.type == "cuda")
@@ -462,6 +512,33 @@ class DeviceBackend(StateBackend):
             total = float(fleet.mem[hk].sum())
             fleet.task[hk] = dst[moving][ok][held].astype(np.int32)
         return total
+
+    # -- checkpoint/restore ----------------------------------------------------
+    def checkpoint(self) -> dict:
+        """Base pack round-trip plus the fleet's ring-column clock: a task
+        whose pack is empty carries no ``col_iv``, but the shared fleet's
+        clock must still survive (install_batch only adopts columns from
+        non-empty packs)."""
+        snap = super().checkpoint()
+        snap["col_iv"] = self._fleet.col_iv.copy()
+        return snap
+
+    def restore(self, ckpt) -> None:
+        """Rebuild the fleet from scratch and reinstall the packs.
+
+        The dense-dest cache is dropped: the restored controller's
+        ``assignment_version`` rewinds, so a stale cache entry could alias a
+        different table under the same version number.
+        """
+        self._fleet = self._make_fleet()
+        self._dest_dense_cache = None
+        maxk = max((int(p.keys.max()) for p in ckpt.packs if p.keys.size),
+                   default=-1)
+        if maxk >= 0:
+            self._fleet.ensure_domain(maxk + 1)
+        self._fleet.col_iv = np.asarray(ckpt.backend_extra["col_iv"],
+                                        dtype=np.int64).copy()
+        super().restore(ckpt)
 
     # -- dense routing table ---------------------------------------------------
     def _dest_dense_arrays(self):

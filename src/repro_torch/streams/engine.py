@@ -19,6 +19,23 @@ Storm).
 Everything state-shaped lives behind the
 :class:`~repro_torch.streams.backends.StateBackend` protocol.
 
+Choice routers
+--------------
+With a choice router installed (``algorithm="pkg"``, ``"potc"`` or
+``"wchoices"``) ``_dest_batch`` asks the router for every tuple's
+destination, once per interval batch; the router's loads advance with each
+call. A router splits one key's tuples across tasks, so the stage refuses
+operators that are not ``split_safe``: pair a split-safe partial operator
+with a downstream merge stage
+(:func:`~repro_torch.streams.topology.router_merge_topology`). Routers run
+on the host stores only — the device backend refuses them, as the JAX
+package's does.
+
+Multi-stage topologies chain stages through
+:meth:`KeyedStage.process_interval_emits`, and
+:mod:`repro_torch.streams.checkpoint` snapshots and restores a stage or a
+topology at an interval boundary.
+
 Substrate flag
 --------------
 ``substrate="numpy"`` (default) computes routing and step-1 stats on host
@@ -43,8 +60,8 @@ Device
 ``device=None`` means the CUDA card and raises ``RuntimeError`` when there
 is none; ``device="cpu"`` runs every kernel's plain PyTorch version on the
 CPU (the tests do). The JAX package's per-tuple reference loop
-(``vectorized=False``), object store, choice routers, failure-injection
-seam, checkpoints and topologies are not ported yet.
+(``vectorized=False``), object store and failure-injection seam are not
+ported yet.
 """
 
 from __future__ import annotations
@@ -91,8 +108,8 @@ class KeyedStage:
         whole-interval operator dispatch), ``"device"`` (a dense key-indexed
         ring on ``device``, one step per interval; see
         :mod:`repro_torch.streams.device`) or ``"auto"`` (device when the
-        operator has device closed forms, the router is Hash32 and the stage
-        runs on CUDA; else columnar).
+        operator has device closed forms, the strategy is a table planner,
+        the router is Hash32 and the stage runs on CUDA; else columnar).
       device: where the device ring and the kernels run; ``None`` = CUDA.
       device_domain_max: the device backend allocates dense state per key
         id; ids at or above this bound raise.
@@ -113,7 +130,17 @@ class KeyedStage:
         self.operator = operator
         self.controller = controller
         if algorithm is not None:
+            # installed before backend resolution so the backends' support
+            # checks see the strategy
             controller.use_algorithm(algorithm)
+        if (controller.strategy.needs_merge_stage
+                and not getattr(operator, "split_safe", False)):
+            raise ValueError(
+                f"algorithm {controller.algorithm_name!r} splits keys across "
+                f"tasks but operator {operator.name!r} is not split-safe; "
+                "use a split-safe operator (e.g. PartialWordCount) with a "
+                "downstream merge stage (repro_torch.streams.topology), or a "
+                "table-planner algorithm")
         self.window = window
         self.n_tasks = controller.assignment.n_dest
         self.device_domain_max = device_domain_max
@@ -195,8 +222,13 @@ class KeyedStage:
         return self.backend.process_interval(keys, values, collect_emits=True)
 
     def _dest_batch(self, keys: np.ndarray) -> np.ndarray:
-        """Destinations for a key batch: F(k) via numpy Assignment.dest or
-        the routing kernel. Called once per interval batch."""
+        """Destinations for a key batch — the strategy's per-tuple router
+        when one is installed, else F(k) via numpy Assignment.dest or the
+        routing kernel. Called exactly ONCE per interval batch (routers are
+        stateful: their load estimates advance per call)."""
+        strategy = self.controller.strategy
+        if strategy.is_router:
+            return strategy.route(keys)
         if self.substrate == "kernels" and keys.size:
             if int(keys.max()) > np.iinfo(np.int32).max or int(keys.min()) < 0:
                 raise ValueError(
@@ -270,6 +302,10 @@ class KeyedStage:
             raise ValueError(
                 f"scale_to requires n_tasks >= 1, got {n_tasks}: a stage "
                 "cannot run with an empty fleet")
+        if self.controller.strategy.is_router:
+            # fail before touching stores: controller.rescale raises, but
+            # only after the fleet would already have grown
+            self.controller.rescale(n_tasks, self.last_stats)
         if self.last_stats is None:
             raise RuntimeError("scale_to requires at least one processed interval")
         while len(self.stores) < n_tasks:

@@ -1,5 +1,5 @@
-"""Stateful operators — the paper's two real workloads (Sec. V) and the
-max-mode merger.
+"""Stream operators — the paper's two real workloads (Sec. V), PKG's split
+and merge operators, and a stateless selection.
 
 * :class:`WordCount` — "store and aggregation on keywords" (Social data):
   per-key counts over the sliding window.
@@ -7,7 +7,10 @@ max-mode merger.
   each incoming tuple joins against all tuples of the same key within the
   window; join work (and hence c(k)) grows superlinearly with key frequency,
   which is exactly the skew-amplification the paper targets.
+* :class:`PartialWordCount` — PKG's split-key word count: partial counts
+  per interval slice that a downstream stage merges (split-safe).
 * :class:`MergeCounts` — PKG's downstream merger: a running max per key.
+* :class:`Filter` — stateless selection ahead of a keyed stage.
 
 Each operator's windowed state is one numeric slot per (key, interval),
 declared by a :class:`~repro_torch.streams.state.ColumnarSpec`. Two closed
@@ -23,8 +26,9 @@ forms serve the two backends:
 
 Emits: the j-th tuple of a key in an interval emits an arithmetic-
 progression term, so the full emit stream (``process_interval_emits``) is
-derived in closed form too. The JAX package's per-tuple ``process`` path and
-object store are not ported yet.
+derived in closed form too; a multi-stage topology chains stages through
+it. The JAX package's per-tuple ``process`` path and object store are not
+ported yet.
 """
 
 from __future__ import annotations
@@ -97,6 +101,38 @@ def _update_by_dest(stores, interval: int, gk: np.ndarray, gd: np.ndarray,
     return win0, slot0
 
 
+def _counting_interval_batch(stores, interval: int, keys: np.ndarray,
+                             dests: np.ndarray, n_tasks: int,
+                             collect_emits: bool, window_total: bool):
+    """Whole-interval dispatch shared by the counting family.
+
+    WordCount and PartialWordCount differ only in which ``c0`` their emit
+    progression starts from: the windowed total (``window_total=True``) or
+    the current interval slice (False). Everything else — one lexsort, one
+    ``update_slots`` slice per destination, one ``np.bincount`` scatter,
+    arithmetic-progression emits — is identical.
+    """
+    order, _, gk, gd, counts, gidx, occ = _interval_groups(keys, dests)
+    fcounts = counts.astype(np.float64)
+    win0, slot0 = _update_by_dest(stores, interval, gk, gd, fcounts, n_tasks)
+    c0s = (win0 if window_total else slot0).astype(np.int64)
+    # emits per key are the running totals c0+1 .. c0+m: sum and last value
+    # are exact integer arithmetic
+    outputs = list(zip(gk.tolist(), (c0s + counts).tolist()))
+    emit_sum = float(np.dot(counts, c0s) + np.dot(counts, counts + 1) / 2.0)
+    res = IntervalBatchResult(
+        gk, fcounts.copy(), fcounts,
+        np.bincount(gd, weights=fcounts, minlength=n_tasks),
+        outputs, emit_sum)
+    if not collect_emits:
+        return res, None
+    # the j-th occurrence of a key emits its running total c0 + j
+    evals = np.empty(keys.size, dtype=np.int64)
+    evals[order] = c0s[gidx] + occ + 1
+    return res, (np.ones(keys.size, dtype=np.int64),
+                 keys.astype(np.int64, copy=False), evals)
+
+
 def _occurrence_index(inv: np.ndarray, counts: np.ndarray) -> np.ndarray:
     """occ[i] = how many earlier tuples in the batch share keys[i]'s key:
     stable-sort positions by group, subtract group starts."""
@@ -105,6 +141,19 @@ def _occurrence_index(inv: np.ndarray, counts: np.ndarray) -> np.ndarray:
     occ = np.empty(inv.size, dtype=np.int64)
     occ[order] = np.arange(inv.size, dtype=np.int64) - np.repeat(starts, counts)
     return occ
+
+
+def _numeric_emit_sum(vals) -> float:
+    """Sum of emitted values the JAX package's per-tuple path counts as
+    numeric: its rule is ``isinstance(v, (int, float))``, so numpy float
+    scalars count but numpy integer scalars do not — float arrays sum and
+    integer/bool arrays contribute nothing."""
+    if isinstance(vals, np.ndarray):
+        if vals.dtype.kind == "f":
+            return float(vals.sum())
+        if vals.dtype.kind in "iub":
+            return 0.0
+    return float(sum(float(v) for v in vals if isinstance(v, (int, float))))
 
 
 class Operator:
@@ -120,6 +169,13 @@ class Operator:
     #: True when per-key cost == tuple frequency (1.0 cost units per tuple):
     #: task loads then come straight off the per-key counts.
     device_unit_cost = False
+    #: True when the operator stays correct if one key's tuples are split
+    #: across tasks (per-tuple output, or a commutative merge a downstream
+    #: stage can combine). Choice routers (pkg/potc/wchoices) split keys by
+    #: design, so KeyedStage refuses ``split_safe = False`` operators under
+    #: a ``needs_merge_stage`` strategy — pair them with a downstream merge
+    #: stage instead (see :mod:`repro_torch.streams.topology`).
+    split_safe = False
 
     def process_interval_batch(self, stores, interval: int, keys: np.ndarray,
                                dests: np.ndarray, n_tasks: int,
@@ -170,24 +226,9 @@ class WordCount(Operator):
 
     def process_interval_batch(self, stores, interval, keys, dests, n_tasks,
                                values, collect_emits):
-        order, _, gk, gd, counts, gidx, occ = _interval_groups(keys, dests)
-        fcounts = counts.astype(np.float64)
-        win0, _ = _update_by_dest(stores, interval, gk, gd, fcounts, n_tasks)
-        c0s = win0.astype(np.int64)
-        # emits per key are the running window totals c0+1 .. c0+m: sum and
-        # last value are exact integer arithmetic
-        outputs = list(zip(gk.tolist(), (c0s + counts).tolist()))
-        emit_sum = float(np.dot(counts, c0s) + np.dot(counts, counts + 1) / 2.0)
-        res = IntervalBatchResult(
-            gk, fcounts.copy(), fcounts,
-            np.bincount(gd, weights=fcounts, minlength=n_tasks),
-            outputs, emit_sum)
-        if not collect_emits:
-            return res, None
-        evals = np.empty(keys.size, dtype=np.int64)
-        evals[order] = c0s[gidx] + occ + 1
-        return res, (np.ones(keys.size, dtype=np.int64),
-                     keys.astype(np.int64, copy=False), evals)
+        return _counting_interval_batch(stores, interval, keys, dests,
+                                        n_tasks, collect_emits,
+                                        window_total=True)
 
     def device_finish(self, counts, win0, slot0):
         emit = float(np.dot(counts, win0) + np.dot(counts, counts + 1) / 2.0)
@@ -244,12 +285,49 @@ class WindowedSelfJoin(Operator):
         return win0_dense[keys].astype(np.int64) + occ
 
 
+class PartialWordCount(Operator):
+    """Split-key (PKG-style) word count: emits partial counts that must be
+    merged downstream — PKG's extra merge operator (Fig. 2a)."""
+
+    name = "partial_wordcount"
+    columnar_needs_values = False
+    device_mode = "add"
+    device_unit_cost = True
+    #: one emit per input tuple, keyed by the same key: a downstream WordCount
+    #: sums the increments to exact totals no matter how the key was split
+    split_safe = True
+
+    def __init__(self, bytes_per_entry: float = 16.0):
+        self.bytes_per_entry = bytes_per_entry
+        self.columnar_spec = ColumnarSpec(mode="add",
+                                          slot_bytes=bytes_per_entry)
+
+    def process_interval_batch(self, stores, interval, keys, dests, n_tasks,
+                               values, collect_emits):
+        # partial counts restart per interval slice: c0 is the CURRENT slice
+        # count, not the window total
+        return _counting_interval_batch(stores, interval, keys, dests,
+                                        n_tasks, collect_emits,
+                                        window_total=False)
+
+    def device_finish(self, counts, win0, slot0):
+        emit = float(np.dot(counts, slot0) + np.dot(counts, counts + 1) / 2.0)
+        return counts.astype(np.float64), slot0 + counts, emit
+
+    def device_emit_values(self, keys, occ, win0_dense, slot0_dense):
+        return slot0_dense[keys].astype(np.int64) + occ + 1
+
+
 class MergeCounts(Operator):
     """PKG's downstream merger: combines partial counts per key by a running
     max (the "max" slot fold)."""
 
     name = "merge"
     device_mode = "max"
+    #: running max is idempotent/commutative across partial streams — but a
+    #: *split* MergeCounts only sees a subset of partials per task, so this
+    #: flag marks per-task safety of the fold, not exactness of a split total
+    split_safe = True
 
     def __init__(self):
         self.bytes_per_entry = 16.0
@@ -280,3 +358,65 @@ class MergeCounts(Operator):
 
     def device_emit_values(self, keys, occ, win0_dense, slot0_dense):
         return None
+
+
+class Filter(Operator):
+    """Stateless selection: forwards tuples whose ``(key, value)`` passes
+    ``predicate``, drops the rest — the 0-or-1 fan-out case of the batched
+    emit contract (a TPC-H-style selection ahead of a keyed join).
+
+    ``predicate(keys, values) -> bool mask`` must be a vectorized,
+    deterministic function of its arguments. No device closed form: a
+    Filter stage runs on the columnar backend.
+    """
+
+    name = "filter"
+    #: stateless, per-tuple output — any split of a key is trivially correct
+    split_safe = True
+    #: stateless — the columnar store is never touched, but opting in routes
+    #: the stage through the whole-interval single dispatch
+    columnar_spec = ColumnarSpec()
+
+    def __init__(self, predicate, cost_per_tuple: float = 0.25):
+        self.predicate = predicate
+        self.cost_per_tuple = cost_per_tuple
+
+    def _select(self, keys, values):
+        """Keep mask, kept tuples, last-wins outputs over kept tuples only
+        (a dropped tuple never reaches the outputs dict), and the
+        emitted-sum under the per-tuple isinstance rule on the ORIGINAL
+        payloads — a Python list of ints counts, but its int64 ndarray
+        conversion would not, so sum from ``values`` when the caller passed
+        a non-ndarray sequence."""
+        vals = (values if isinstance(values, np.ndarray)
+                else np.asarray(values if values is not None
+                                else [None] * len(keys)))
+        keep = np.asarray(self.predicate(keys, vals), dtype=bool)
+        kept_k = keys[keep]
+        kept_v = vals[keep]
+        outputs = []
+        if kept_k.size:
+            rev_uniq, rev_first = np.unique(kept_k[::-1], return_index=True)
+            outputs = list(zip(rev_uniq.tolist(),
+                               kept_v[::-1][rev_first].tolist()))
+        if isinstance(values, np.ndarray) or values is None:
+            emit_sum = _numeric_emit_sum(kept_v)
+        else:
+            emit_sum = _numeric_emit_sum(
+                [values[i] for i in np.nonzero(keep)[0]])
+        return keep, kept_k, kept_v, outputs, emit_sum
+
+    def process_interval_batch(self, stores, interval, keys, dests, n_tasks,
+                               values, collect_emits):
+        keep, kept_k, kept_v, outputs, emit_sum = self._select(keys, values)
+        _, _, gk, gd, counts, _, _ = _interval_groups(keys, dests)
+        fcounts = counts.astype(np.float64)
+        res = IntervalBatchResult(
+            gk, self.cost_per_tuple * fcounts, fcounts,
+            np.bincount(gd, weights=self.cost_per_tuple * fcounts,
+                        minlength=n_tasks),
+            outputs, emit_sum)
+        if not collect_emits:
+            return res, None
+        return res, (keep.astype(np.int64),
+                     kept_k.astype(np.int64, copy=False), kept_v)

@@ -33,8 +33,11 @@ from repro_torch.core.balancer import (HashRouter, discretize,
                                        strategy_names, total_deviation)
 from repro_torch.streams import WorkloadGen
 
-#: the JAX package's per-tuple choice routers, which the port does not have
+#: the per-tuple choice routers, which both packages register
 CHOICE_ROUTERS = ("pkg", "potc", "wchoices")
+#: the registered table planners: every name but the choice routers
+TABLE_PLANNERS = tuple(n for n in strategy_names()
+                       if not resolve_strategy(n).is_router)
 
 
 def _port_stats(stats):
@@ -109,17 +112,24 @@ def test_controller_rounds_and_rescale_bit_identical():
         np.testing.assert_array_equal(a, b)
 
 
-def test_only_mixed_is_registered_and_sketch_waits():
-    """The port registers every table planner the JAX package registers, and
-    only the choice routers are missing; sketch mode no longer waits."""
-    assert strategy_names() == tuple(n for n in ref_strategy_names()
-                                     if n not in CHOICE_ROUTERS)
+def test_every_strategy_is_registered_and_routers_are_accepted():
+    """The port registers every strategy the JAX package registers, in the
+    same order — the table planners and the choice routers — and the
+    controller accepts each router, in exact and sketch mode."""
+    assert strategy_names() == ref_strategy_names()
+    assert set(CHOICE_ROUTERS) == set(strategy_names()) - set(TABLE_PLANNERS)
+    assert len(TABLE_PLANNERS) == 10
     a = Assignment(Hash32(4))
     ctrl = RebalanceController(a, BalanceConfig(), stats_mode="sketch")
     assert ctrl.stats_mode == "sketch" and ctrl.sketch is not None
     for router in CHOICE_ROUTERS:
-        with pytest.raises(ValueError, match="unknown algorithm"):
-            RebalanceController(a, BalanceConfig(), algorithm=router)
+        for mode in ("exact", "sketch"):
+            ctrl = RebalanceController(a, BalanceConfig(), algorithm=router,
+                                       stats_mode=mode)
+            assert ctrl.algorithm_name == router
+            assert ctrl.strategy.is_router
+            assert not ctrl.strategy.plans_migration
+            assert ctrl.strategy.needs_merge_stage
 
 
 def _sketch_snapshot(stats, assignment, capacity):
@@ -132,7 +142,7 @@ def _sketch_snapshot(stats, assignment, capacity):
     return sk.snapshot(assignment)
 
 
-@pytest.mark.parametrize("name", strategy_names())
+@pytest.mark.parametrize("name", TABLE_PLANNERS)
 @pytest.mark.parametrize("mode", ["exact", "sketch"])
 def test_every_planner_matches_jax(name, mode):
     """Each registered planner against the JAX package's function of the
