@@ -32,13 +32,39 @@ It prints one JSON line per phase, each with its wall seconds:
 * ``stream_sketch`` — the stream deployment with
   ``RebalanceController(stats_mode="sketch")`` (count-min sketch and
   SpaceSaving head tracker, the default ``SketchConfig``): Mixed for 8
-  intervals, then MinTable, MinMig and compact Mixed for 3 each, each held
+  intervals, then MinTable, MinMig and compact Mixed for 2 each, each held
   interval by interval against the same planner's sketch-mode stage on the
   CPU (``SKETCH_ORACLE``). Per planner: interval, plan and ``ingest`` ms,
   tuples/s, the snapshot's head keys (beside the exact phase's stats
   keys), the sketch's bytes, θ and the routing kernel's launches, which
   must cover every assignment version the stage routed with. Its routing
   table and dense domain also give the kernel a row of its own.
+* ``chaos``   — the rest of the stream system at the stream cell's
+  deployment, in three legs. (1) Recovery on the device ring
+  (``substrate="kernels"``): the stream phase's 8 intervals of traffic,
+  through a fault-free stage and through an identical one under
+  ``ChaosRunner(checkpoint_every=2)`` with ``CHAOS_PLAN`` (kills at both
+  crash sites, a dropped and a duplicated delivery, a stall of 2
+  attempts); the reports (every field, task loads included), outputs,
+  emitted sum and held keys must be identical, with one
+  ``RecoveryEvent`` a fault. Read: each event's time to recover (restore
+  plus replay, from the caught fault until the stage is back at the
+  interval), intervals replayed, each cadence checkpoint's ms and host
+  bytes, and the chaos run's wall time against the fault-free run's. (2)
+  ``AutoscaleLoop`` on the device ring from 15 tasks (target 4M/15 a
+  task, 4 to 15 tasks) through 1M x 4, 4M x 5, 1M x 5 tuples (prefixes of
+  those intervals), against the same loop on a CPU columnar stage:
+  identical decisions and reports, no task flagged, a scale-in and a
+  scale-out applied; read each decision's predicted bytes and stall and
+  ``scale_to``'s ms. (3) The object store
+  (``state_backend="object"``, ``substrate="kernels"``): WindowedSelfJoin
+  over float ticks at K = 10^5, 500K tuples x 4 (``ObjectLegConfig``)
+  against the per-tuple loop (``vectorized=False``, numpy, CPU):
+  identical outputs and emitted sum, loads within 1e-5 and c(k) within
+  1e-6 relative. Routing must launch at least once per assignment
+  version each recovery-leg run routes with; in the object leg both
+  kernels launch every interval. Rows ``routing_lookup[dense,chaos]``,
+  ``routing_lookup[per_tuple,object]`` and ``key_stats[object]``.
 * ``serve``   — the serving slice: gemma3-12b at full width and depth
   (48 layers, d_model 3840, 16/8 heads of 240, vocab 262144) with random
   bf16 weights from a seeded generator on the card, 4 requests of 2048
@@ -603,7 +629,8 @@ def phase_flash(torch, scfg: ServeConfig, mcfg: "MoeServeConfig",
 # -- phases 3 and 4: the two configurations -------------------------------------
 
 def make_stage(cfg: Config, backend: str, substrate: str, device,
-               stats_mode: str = "exact", algorithm: str = "mixed"):
+               stats_mode: str = "exact", algorithm: str = "mixed",
+               operator=None, vectorized: bool = True):
     from repro_torch import (Assignment, BalanceConfig, Hash32, KeyedStage,
                              RebalanceController, WordCount)
     controller = RebalanceController(
@@ -611,9 +638,9 @@ def make_stage(cfg: Config, backend: str, substrate: str, device,
         BalanceConfig(theta_max=cfg.theta_max, table_max=cfg.table_max,
                       window=cfg.window),
         algorithm=algorithm, stats_mode=stats_mode)
-    return KeyedStage(WordCount(), controller, window=cfg.window,
+    return KeyedStage(operator or WordCount(), controller, window=cfg.window,
                       state_backend=backend, substrate=substrate,
-                      device=device)
+                      device=device, vectorized=vectorized)
 
 
 def _finite_report(r, n_tasks: int) -> None:
@@ -663,7 +690,7 @@ def phase_stream(cfg: Config, device, sync) -> tuple:
     """The main path on ``device`` against columnar + numpy on the CPU.
 
     Returns (metrics, the CPU reference's per-interval record for the stats
-    phase)."""
+    phase, every interval's keys for the chaos phase)."""
     from repro_torch.kernels.routing_lookup import RoutingTable
     from repro_torch.streams import WorkloadGen
     from repro_torch.streams import device as device_mod
@@ -693,18 +720,18 @@ def phase_stream(cfg: Config, device, sync) -> tuple:
     finally:
         RoutingTable.build, RoutingTable.to = build, to
         device_mod.route_keys = route
-    metrics, record = result
+    metrics, record, trace = result
     metrics.update({"step_ms": spans["step_ms"],
                     "route_dense_ms": spans["route_ms"],
                     "route_dense_parts_ms": {
                         k: spans[k] for k in ("table_build_ms",
                                               "table_upload_ms",
                                               "kernel_ms")}})
-    return metrics, record
+    return metrics, record, trace
 
 
 def _drive_stream(cfg: Config, dev, ref, gen, sync) -> tuple:
-    record, interval_ms, ref_ms, gen_ms = [], [], [], []
+    record, interval_ms, ref_ms, gen_ms, trace = [], [], [], [], []
     stats_keys, digests = [], []
     for i in range(cfg.intervals):
         t0 = time.perf_counter()
@@ -712,6 +739,7 @@ def _drive_stream(cfg: Config, dev, ref, gen, sync) -> tuple:
             gen.interval(dev.controller.assignment)
         keys = gen.draw_tuples(cfg.tuples).astype(np.int64)
         gen_ms.append((time.perf_counter() - t0) * 1e3)
+        trace.append(keys)
         sync()
         t0 = time.perf_counter()
         r_dev = dev.process_interval_arrays(keys)
@@ -750,7 +778,7 @@ def _drive_stream(cfg: Config, dev, ref, gen, sync) -> tuple:
             "theta": [r.theta for r in dev.reports],
             "planned_theta": [r.theta for r in results],
             "migrated_bytes": [r.migrated_bytes for r in dev.reports],
-            "reports_match_cpu": True}, record
+            "reports_match_cpu": True}, record, trace
 
 
 def phase_stats(cfg: Config, device, sync, record) -> dict:
@@ -776,8 +804,8 @@ def phase_stats(cfg: Config, device, sync, record) -> dict:
 
 
 #: the stream_sketch phase's planners, each with its interval count
-SKETCH_PLANNERS = (("mixed", 8), ("mintable", 3), ("minmig", 3),
-                   ("compact_mixed", 3))
+SKETCH_PLANNERS = (("mixed", 8), ("mintable", 2), ("minmig", 2),
+                   ("compact_mixed", 2))
 #: the CPU oracle of the stream_sketch phase: (state backend, substrate).
 #: The device backend folds each interval into the sketch once, the
 #: columnar backend twice (traffic, then held sizes); at this deployment
@@ -933,10 +961,15 @@ def make_topology(cfg: Config, device, substrate: str, state_backend: str):
         device=device)
 
 
-def pack_bytes(ckpt) -> int:
-    """Host bytes of a topology checkpoint's packs (their arrays)."""
-    return int(sum(a.nbytes for st in ckpt.stages for p in st.packs
+def stage_pack_bytes(ckpt) -> int:
+    """Host bytes of a stage checkpoint's packs (their arrays)."""
+    return int(sum(a.nbytes for p in ckpt.packs
                    for a in (p.keys, p.vals, p.sizes, p.present, p.col_iv)))
+
+
+def pack_bytes(ckpt) -> int:
+    """Host bytes of a topology checkpoint's packs."""
+    return sum(stage_pack_bytes(st) for st in ckpt.stages)
 
 
 def _same_topology_report(got, want) -> None:
@@ -1171,9 +1204,11 @@ def check_topology_launches(metrics: dict, launches: dict) -> None:
             f"{versions} assignment versions")
 
 
-def topology_stats_row(timer: Timer, stats_input) -> dict:
-    """``key_stats`` on one split-stage interval's stats input, the
-    two-weight launch the split stage makes, against two plain calls."""
+def topology_stats_row(timer: Timer, stats_input,
+                       name: str = "key_stats[topology_split]") -> dict:
+    """``key_stats`` on one host-store stage's stats input (one interval's
+    per-group keys, costs and counts), the two-weight launch that stage
+    makes, against two plain calls."""
     import torch
     from repro_torch.kernels import key_stats_plain
     from repro_torch.kernels.key_stats import key_sums
@@ -1185,9 +1220,8 @@ def topology_stats_row(timer: Timer, stats_input) -> dict:
     for got, want in ((s1, p1), (s2, p2)):
         diff = (got - want).abs()
         if bool((diff > reorder_bound(torch, pfreq, want)).any()):
-            raise AssertionError("key_stats[topology_split]: kernel and "
-                                 "plain sums differ beyond float32 "
-                                 "reordering")
+            raise AssertionError(f"{name}: kernel and plain sums differ "
+                                 "beyond float32 reordering")
         err = max(err, float(diff.max()))
     n = keys.numel()
     valid = (keys >= 0) & (keys < num)
@@ -1197,7 +1231,7 @@ def topology_stats_row(timer: Timer, stats_input) -> dict:
     lower = bound(n * (4 + w1.element_size() + w2.element_size())
                   + 8 * num, STATS_OPS_PER_TUPLE * n)
     return {
-        "name": "key_stats[topology_split]", "route": "cuda",
+        "name": name, "route": "cuda",
         "source": "src/repro_torch/csrc/key_stats.cu",
         "replaces": "src/repro/kernels/key_stats.py:31",
         "shape": {"n": n, "num_keys": num, "weights": 2,
@@ -1209,6 +1243,421 @@ def topology_stats_row(timer: Timer, stats_input) -> dict:
         "library_ms": timer.ms(lambda: (
             torch.bincount(mk, weights=m1, minlength=num),
             torch.bincount(mk, weights=m2, minlength=num)))}
+
+
+# -- the chaos phase: recovery, autoscaling, the object store -------------------
+
+#: the recovery leg: intervals, the checkpoint cadence and the fault plan
+CHAOS_INTERVALS = 8
+CHAOS_CHECKPOINT_EVERY = 2
+CHAOS_PLAN = (("kill", 3, "mid"), ("kill", 4, "deliver"), ("drop", 5),
+              ("duplicate", 6), ("stall", 7, 2), ("kill", 8, "mid"))
+#: what the runner records for that plan, as (interval, kind, replayed):
+#: the second delivery of interval 6 is interval 7's first, which the stall
+#: refuses, so the duplicate is caught as a stall (the JAX package's
+#: runner gives the same list, ``tests/test_torch_faults.py``)
+CHAOS_EVENTS = [(3, "kill@mid", 1), (4, "kill@deliver", 2), (5, "drop", 1),
+                (6, "stall@deliver", 2), (7, "stall@deliver", 1),
+                (8, "kill@mid", 2)]
+#: the autoscale leg's traffic, (share of the cell's tuples an interval,
+#: intervals): quiet, 4x, quiet — 1M, 4M, 1M at the cell
+AUTOSCALE_TRAFFIC = ((0.25, 4), (1.0, 5), (0.25, 5))
+#: the autoscale leg's fleet bounds
+AUTOSCALE_TASKS = (4, 15)
+
+
+@dataclasses.dataclass(frozen=True)
+class ObjectLegConfig:
+    """The object-store leg: WindowedSelfJoin over float tick values (the
+    paper's self-join over stock ticks) at the stream cell's deployment,
+    cut to K = 10^5 keys and 500K tuples an interval for 4 intervals: the
+    store holds one Python ``KeyState`` a key and its oracle, the per-tuple
+    loop, runs one Python call a tuple. The probe cost is dyadic (1/64, as
+    the tests pin it): at the default 0.01 the per-tuple loop's running
+    float64 sums and the batch closed form round differently, and the two
+    stages plan different tables from the same traffic."""
+
+    k: int = 100_000
+    tuples: int = 500_000
+    intervals: int = 4
+    probe_cost: float = 1 / 64
+
+
+def make_faults(spec):
+    """A ``FaultPlan`` from ``(kind, interval, arg)`` rows."""
+    from repro_torch.streams import (DropDelivery, DuplicateDelivery,
+                                     FaultPlan, KillTask, StallTask)
+    faults = []
+    for row in spec:
+        kind, iv = row[0], row[1]
+        if kind == "kill":
+            faults.append(KillTask(interval=iv, task=iv % 15, site=row[2]))
+        elif kind == "stall":
+            faults.append(StallTask(interval=iv, task=1, attempts=row[2]))
+        elif kind == "drop":
+            faults.append(DropDelivery(interval=iv))
+        else:
+            faults.append(DuplicateDelivery(interval=iv))
+    return FaultPlan(faults)
+
+
+def versions_seen(stage, versions: list) -> None:
+    """Record the assignment version each interval of ``stage`` routes
+    with (replays included)."""
+    run = stage.process_interval_arrays
+
+    def wrapper(*a, **kw):
+        versions.append(stage.controller.assignment_version)
+        return run(*a, **kw)
+    stage.process_interval_arrays = wrapper
+
+
+def instrument_runner(runner, sync) -> dict:
+    """Time a ``ChaosRunner``'s cadence checkpoints (ms, host bytes) and
+    its recoveries: time to recover is from the caught fault until the
+    stage is back at the failed interval (restores and replays; the
+    cadence checkpoint a recovery ends with is booked as a checkpoint)."""
+    from repro_torch.streams import faults as faults_mod
+    out = {"checkpoints": [], "recoveries": [], "restore_ms": []}
+    take, recover = runner._maybe_checkpoint, runner._recover
+
+    def timed_checkpoint(interval):
+        if interval % runner.checkpoint_every:
+            return take(interval)
+        sync()
+        t0 = time.perf_counter()
+        take(interval)
+        sync()
+        out["checkpoints"].append({
+            "interval": interval, "ms": (time.perf_counter() - t0) * 1e3,
+            "host_bytes": stage_pack_bytes(runner._ckpt)})
+
+    def timed_recover(upto, kind):
+        n_ckpt, n_rest = len(out["checkpoints"]), len(out["restore_ms"])
+        sync()
+        t0 = time.perf_counter()
+        recover(upto, kind)
+        sync()
+        total = (time.perf_counter() - t0) * 1e3
+        ckpt_ms = sum(c["ms"] for c in out["checkpoints"][n_ckpt:])
+        restores = out["restore_ms"][n_rest:]
+        out["recoveries"].append({
+            "interval": upto, "kind": kind,
+            "replayed": runner.events[-1].replayed,
+            "time_to_recover_ms": total - ckpt_ms,
+            "restore_ms": sum(restores), "restores": len(restores),
+            "replay_ms": total - ckpt_ms - sum(restores)})
+
+    runner._maybe_checkpoint = timed_checkpoint
+    runner._recover = timed_recover
+    faults_mod.restore_stage = spanned(faults_mod.restore_stage,
+                                       out["restore_ms"], sync)
+    return out
+
+
+def _same_stage_run(got, want, what: str) -> None:
+    """Identical reports (every field, task loads included), outputs,
+    emitted sum, held keys and routing table."""
+    if len(got.reports) != len(want.reports):
+        raise AssertionError(f"{what}: {len(got.reports)} reports, not "
+                             f"{len(want.reports)}")
+    for rg, rw in zip(got.reports, want.reports):
+        _same_report(rg, rw, exact=True)
+    if (got.outputs != want.outputs or got.emitted_sum != want.emitted_sum
+            or got.total_state_keys() != want.total_state_keys()
+            or got.controller.assignment.table
+            != want.controller.assignment.table):
+        raise AssertionError(f"{what}: outputs, held keys or tables differ")
+
+
+def phase_chaos(cfg: Config, ocfg: ObjectLegConfig, device, sync,
+                trace=None) -> tuple:
+    """Three legs at the stream cell's deployment (see the module
+    docstring): recovery under ``ChaosRunner`` on the device ring, the
+    ``AutoscaleLoop`` on the device ring against the same loop on a CPU
+    columnar stage, and the object store on the ``"kernels"`` substrate
+    against the per-tuple loop. ``trace`` is the stream phase's keys, one
+    array an interval (the recovery leg's fault-free stage is the stream
+    phase's, so its generator would draw the same); None draws them here.
+    Returns (metrics, launches per leg, the chaos stage's last table and
+    dense domain, the object stage's last table and keys, one object
+    interval's stats input)."""
+    from repro_torch.kernels import key_stats, route_keys
+    from repro_torch.streams import faults as faults_mod
+
+    def counts():
+        return {"route_keys": route_keys.launches,
+                "key_stats": key_stats.launches}
+
+    launches = {}
+    restore = faults_mod.restore_stage
+    try:
+        c0 = counts()
+        recovery, chaos_stage, trace = _chaos_recovery(cfg, device, sync,
+                                                       trace)
+        launches["recovery"] = {k: v - c0[k] for k, v in counts().items()}
+    finally:
+        faults_mod.restore_stage = restore
+    c0 = counts()
+    autoscale = _chaos_autoscale(cfg, device, sync, trace)
+    launches["autoscale"] = {k: v - c0[k] for k, v in counts().items()}
+    c0 = counts()
+    objects, object_stage, stats_input = _chaos_object(cfg, ocfg, device,
+                                                       sync)
+    launches["object"] = {k: v - c0[k] for k, v in counts().items()}
+    table = chaos_stage.controller.assignment
+    pad = max(chaos_stage._table_capacity, 128,
+              1 << max(0, table.table_size - 1).bit_length())
+    dense_input = (*table.table_arrays(pad), chaos_stage.backend.fleet.domain)
+    otable = object_stage.controller.assignment
+    opad = max(object_stage._table_capacity, 128,
+               1 << max(0, otable.table_size - 1).bit_length())
+    object_input = (*otable.table_arrays(opad), objects.pop("last_keys"))
+    return ({"recovery": recovery, "autoscale": autoscale,
+             "object": objects}, launches, dense_input, object_input,
+            stats_input)
+
+
+def check_chaos_launches(metrics: dict, launches: dict) -> None:
+    """The chaos phase's kernel checks: on each recovery-leg run the
+    routing kernel at least once per assignment version routed (a restore
+    rewinds the version and drops the dense-dest table, so the chaos run
+    relaunches: at least, not equal); the autoscale leg routes through it;
+    the object leg launches both kernels in every interval; the device ring
+    never launches ``key_stats``."""
+    rec = metrics["recovery"]
+    for run in ("plain", "chaos"):
+        got, versions = rec["launches"][run], rec["versions_routed"][run]
+        if not 0 < len(versions) <= got:
+            raise AssertionError(f"recovery leg, {run} run: {got} routing "
+                                 f"launches for {len(versions)} assignment "
+                                 "versions")
+    if not launches["autoscale"]["route_keys"]:
+        raise AssertionError("the autoscale leg never launched the routing "
+                             "kernel")
+    obj = metrics["object"]
+    for name, per in (("route_keys", obj["route_launches"]),
+                      ("key_stats", obj["stats_launches"])):
+        if min(per) < 1:
+            raise AssertionError(f"object leg: {name} missed an interval: "
+                                 f"{per}")
+    if launches["recovery"]["key_stats"] or \
+            launches["autoscale"]["key_stats"]:
+        raise AssertionError(f"the device ring launched key_stats: "
+                             f"{launches}")
+
+
+def _chaos_recovery(cfg: Config, device, sync, trace=None) -> tuple:
+    """Leg 1: ``CHAOS_INTERVALS`` intervals recorded once (or ``trace``'s),
+    through a fault-free device stage and then through an identical one
+    under ``ChaosRunner(checkpoint_every=CHAOS_CHECKPOINT_EVERY)`` with
+    ``CHAOS_PLAN``; the two runs must be identical. Returns (metrics, the
+    chaos stage, the trace)."""
+    from repro_torch.kernels import route_keys
+    from repro_torch.streams import ChaosRunner, WorkloadGen
+    plain = make_stage(cfg, "device", "kernels", device)
+    recorded = list(trace or [])[:CHAOS_INTERVALS]
+    gen = None if len(recorded) == CHAOS_INTERVALS else WorkloadGen(
+        k=cfg.k, z=cfg.z, f=cfg.f, seed=cfg.seed, window=cfg.window)
+    trace, plain_ms, versions = [], [], {"plain": [], "chaos": []}
+    launches = {}
+    versions_seen(plain, versions["plain"])
+    r0 = route_keys.launches
+    for i in range(CHAOS_INTERVALS):
+        if i < len(recorded):
+            keys = recorded[i]
+        else:
+            if i:
+                gen.interval(plain.controller.assignment)
+            keys = gen.draw_tuples(cfg.tuples).astype(np.int64)
+        trace.append(keys)
+        sync()
+        t0 = time.perf_counter()
+        plain.process_interval_arrays(keys)
+        sync()
+        plain_ms.append((time.perf_counter() - t0) * 1e3)
+    launches["plain"] = route_keys.launches - r0
+
+    stage = make_stage(cfg, "device", "kernels", device)
+    versions_seen(stage, versions["chaos"])
+    r0 = route_keys.launches
+    sync()
+    t0 = time.perf_counter()
+    runner = ChaosRunner(stage, make_faults(CHAOS_PLAN),
+                         checkpoint_every=CHAOS_CHECKPOINT_EVERY)
+    sync()
+    baseline_ms = (time.perf_counter() - t0) * 1e3
+    spans = instrument_runner(runner, sync)
+    chaos_ms = []
+    for keys in trace:
+        sync()
+        t0 = time.perf_counter()
+        runner.process_interval(keys)
+        sync()
+        chaos_ms.append((time.perf_counter() - t0) * 1e3)
+    launches["chaos"] = route_keys.launches - r0
+    for r in stage.reports:
+        _finite_report(r, cfg.n_tasks)
+    _same_stage_run(stage, plain, "recovery leg")
+    got = [(e.interval, e.kind, e.replayed) for e in runner.events]
+    if got != CHAOS_EVENTS:
+        raise AssertionError(f"recovery events {got}, not {CHAOS_EVENTS}")
+    return {
+        "intervals": CHAOS_INTERVALS, "tuples_per_interval": cfg.tuples,
+        "checkpoint_every": CHAOS_CHECKPOINT_EVERY,
+        "faults": [list(f) for f in CHAOS_PLAN], "events": got,
+        "recoveries": spans["recoveries"],
+        "time_to_recover_ms": [r["time_to_recover_ms"]
+                               for r in spans["recoveries"]],
+        "checkpoints": spans["checkpoints"],
+        "baseline_checkpoint_ms": baseline_ms,
+        "plain_interval_ms": plain_ms, "plain_wall_ms": sum(plain_ms),
+        "chaos_interval_ms": chaos_ms, "chaos_wall_ms": sum(chaos_ms),
+        "chaos_over_plain": sum(chaos_ms) / sum(plain_ms),
+        "launches": launches,
+        "versions_routed": {k: sorted(set(v)) for k, v in versions.items()},
+        "table_size": stage.controller.assignment.table_size,
+        "reports_match_fault_free": True}, stage, trace
+
+
+def _chaos_autoscale(cfg: Config, device, sync, trace) -> dict:
+    """Leg 2: ``AutoscaleLoop`` on the device ring at the full fleet,
+    through ``AUTOSCALE_TRAFFIC``, against the same loop on a CPU columnar
+    stage (numpy): identical decisions, reports and tables, no task
+    flagged, and ``scale_to`` run both ways. Interval i takes the first
+    ``share * cfg.tuples`` keys of the recovery leg's interval ``i mod 8``
+    (drawing them anew costs ~4.5 s an interval of host time at K =
+    10^6)."""
+    from repro_torch.core import (AutoscaleConfig, AutoscaleLoop,
+                                  HeartbeatMonitor)
+    lo, hi = AUTOSCALE_TASKS
+    config = dict(target_load=cfg.tuples / hi, min_tasks=lo, max_tasks=hi)
+    dev = AutoscaleLoop(make_stage(cfg, "device", "kernels", device),
+                        AutoscaleConfig(**config), monitor=HeartbeatMonitor())
+    ref = AutoscaleLoop(make_stage(cfg, "columnar", "numpy", "cpu"),
+                        AutoscaleConfig(**config), monitor=HeartbeatMonitor())
+    scale_ms = []
+    dev.stage.scale_to = spanned(dev.stage.scale_to, scale_ms, sync)
+    step_ms, fleet = [], []
+    i = 0
+    for share, intervals in AUTOSCALE_TRAFFIC:
+        tuples = int(share * cfg.tuples)
+        for _ in range(intervals):
+            keys = trace[i % len(trace)][:tuples]
+            sync()
+            t0 = time.perf_counter()
+            dev.step(keys)
+            sync()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            ref.step(keys)
+            fleet.append(dev.stage.n_tasks)
+            if dev.stage.controller.assignment.table != \
+                    ref.stage.controller.assignment.table:
+                raise AssertionError(f"autoscale, interval {i + 1}: routing "
+                                     "tables differ")
+            i += 1
+    decisions = [dataclasses.astuple(d) for d in dev.decisions]
+    if decisions != [dataclasses.astuple(d) for d in ref.decisions]:
+        raise AssertionError("autoscale decisions differ from the CPU loop")
+    for r in dev.stage.reports:
+        _finite_report(r, len(r.task_loads))
+    if len(dev.stage.reports) != len(ref.stage.reports):
+        raise AssertionError("autoscale: report counts differ")
+    for rg, rw in zip(dev.stage.reports, ref.stage.reports):
+        _same_report(rg, rw, exact=True)
+    if dev.stalled_tasks or ref.stalled_tasks:
+        raise AssertionError(f"autoscale flagged tasks: {dev.stalled_tasks}")
+    applied = {d.reason for d in dev.decisions if d.applied}
+    if applied != {"scale-in", "scale-out"}:
+        raise AssertionError(f"autoscale applied {applied}, not a scale-in "
+                             "and a scale-out")
+    return {
+        "traffic": [[int(share * cfg.tuples), n]
+                    for share, n in AUTOSCALE_TRAFFIC], "config": config,
+        "decisions": [dataclasses.asdict(d) for d in dev.decisions],
+        "fleet": fleet, "step_ms": step_ms, "scale_to_ms": scale_ms,
+        "theta": [r.theta for r in dev.stage.reports],
+        "migrated_bytes": [r.migrated_bytes for r in dev.stage.reports],
+        "decisions_match_cpu": True}
+
+
+def _chaos_object(cfg: Config, ocfg: ObjectLegConfig, device,
+                  sync) -> tuple:
+    """Leg 3: WindowedSelfJoin with float tick values on the object store
+    (``state_backend="object"``, ``substrate="kernels"``: the routing
+    kernel on every tuple, step-1 stats through ``key_stats``) against the
+    per-tuple loop (``vectorized=False``, numpy, CPU): identical outputs
+    and emitted sum, loads within 1e-5 and c(k) within 1e-6 relative."""
+    from repro_torch import WindowedSelfJoin
+    from repro_torch.kernels import key_stats, route_keys
+    from repro_torch.streams import WorkloadGen
+    from repro_torch.streams import backends as backends_mod
+    ocell = dataclasses.replace(cfg, k=ocfg.k)
+    stage = make_stage(ocell, "object", "kernels", device,
+                       operator=WindowedSelfJoin(probe_cost=ocfg.probe_cost))
+    oracle = make_stage(ocell, "object", "numpy", "cpu",
+                        operator=WindowedSelfJoin(probe_cost=ocfg.probe_cost),
+                        vectorized=False)
+    gen = WorkloadGen(k=ocfg.k, z=cfg.z, f=cfg.f, seed=cfg.seed,
+                      window=cfg.window)
+    rng = np.random.default_rng(cfg.seed + 2)
+    key_sums = backends_mod.key_sums
+    stats_input = []
+
+    def recording_key_sums(keys, w1, w2, num):
+        stats_input[:] = [keys, w1, w2, num]
+        return key_sums(keys, w1, w2, num)
+
+    backends_mod.key_sums = recording_key_sums
+    interval_ms, oracle_ms, route_n, stats_n = [], [], [], []
+    try:
+        for i in range(ocfg.intervals):
+            if i:
+                gen.interval(stage.controller.assignment)
+            keys = gen.draw_tuples(ocfg.tuples).astype(np.int64)
+            # a tick: price around 100 in cents, one value per tuple
+            ticks = np.round(100.0 + rng.normal(0, 2.0, keys.size), 2)
+            r0, s0 = route_keys.launches, key_stats.launches
+            sync()
+            t0 = time.perf_counter()
+            got = stage.process_interval_arrays(keys, ticks)
+            sync()
+            interval_ms.append((time.perf_counter() - t0) * 1e3)
+            route_n.append(route_keys.launches - r0)
+            stats_n.append(key_stats.launches - s0)
+            t0 = time.perf_counter()
+            want = oracle.process_interval_arrays(keys, ticks)
+            oracle_ms.append((time.perf_counter() - t0) * 1e3)
+            _finite_report(got, cfg.n_tasks)
+            _same_report(got, want, exact=False)
+            ls, lw = stage.last_stats, oracle.last_stats
+            np.testing.assert_array_equal(ls.keys, lw.keys)
+            np.testing.assert_array_equal(ls.freq, lw.freq)
+            np.testing.assert_allclose(ls.cost, lw.cost, rtol=1e-6)
+            if stage.controller.assignment.table != \
+                    oracle.controller.assignment.table:
+                raise AssertionError(f"object leg, interval {i + 1}: "
+                                     "routing tables differ")
+    finally:
+        backends_mod.key_sums = key_sums
+    if (stage.outputs != oracle.outputs
+            or stage.emitted_sum != oracle.emitted_sum
+            or stage.total_state_keys() != oracle.total_state_keys()):
+        raise AssertionError("object leg: outputs differ from the per-tuple "
+                             "loop")
+    med = statistics.median(interval_ms)
+    return {
+        "operator": "selfjoin", "keys": ocfg.k, "intervals": ocfg.intervals,
+        "tuples_per_interval": ocfg.tuples,
+        "interval_ms": interval_ms, "interval_ms_median": med,
+        "tuples_per_s": ocfg.tuples / med * 1e3,
+        "per_tuple_loop_interval_ms": oracle_ms,
+        "held_keys": stage.total_state_keys(),
+        "table_size": stage.controller.assignment.table_size,
+        "theta": [r.theta for r in stage.reports],
+        "route_launches": route_n, "stats_launches": stats_n,
+        "last_keys": keys.astype(np.int32),
+        "matches_per_tuple_loop": True}, stage, stats_input
 
 
 # -- phases 5 and 6: the serving slices -----------------------------------------
@@ -1700,7 +2149,7 @@ def main() -> int:
     torch.cuda.reset_peak_memory_stats()
     route_keys.launches = 0
     key_stats.launches = 0
-    stream, record = phase_stream(cfg, "cuda", sync)
+    stream, record, trace = phase_stream(cfg, "cuda", sync)
     main_launches = {"route_keys": route_keys.launches,
                      "key_stats": key_stats.launches}
     if main_launches["route_keys"] == 0:
@@ -1763,6 +2212,31 @@ def main() -> int:
           "card": nvidia_smi_line(), "seconds": time.perf_counter() - t0})
 
     t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    route_keys.launches = 0
+    key_stats.launches = 0
+    chaos, chaos_launches, (tk, td, domain), (otk, otd, okeys), \
+        stats_input = phase_chaos(cfg, ObjectLegConfig(), "cuda", sync,
+                                  trace)
+    del trace
+    chaos_peak = torch.cuda.max_memory_allocated()
+    check_chaos_launches(chaos, chaos_launches)
+    timer = Timer(torch, cfg.reps)
+    rows.append(routing_row(
+        timer, "routing_lookup[dense,chaos]",
+        torch.arange(domain + 1, dtype=torch.int32, device="cuda"),
+        RoutingTable.from_arrays(tk, td, torch.device("cuda")), cfg))
+    rows.append(routing_row(
+        timer, "routing_lookup[per_tuple,object]",
+        torch.from_numpy(okeys).to("cuda"),
+        RoutingTable.from_arrays(otk, otd, torch.device("cuda")), cfg))
+    rows.append(topology_stats_row(timer, stats_input, "key_stats[object]"))
+    del timer, stats_input
+    emit({"phase": "chaos", **chaos, "launches": chaos_launches,
+          "kernel_rows": rows[-3:], "device_memory_peak_bytes": chaos_peak,
+          "card": nvidia_smi_line(), "seconds": time.perf_counter() - t0})
+
+    t0 = time.perf_counter()
     from repro_torch.configs import get_config
     serve = phase_serve(torch, get_config(scfg.arch), scfg, "cuda", sync)
     want = {str(w): n for w, n in sorted(
@@ -1805,6 +2279,12 @@ def main() -> int:
                     topo_launches["merge"]["route_keys"],
                 "key_stats[topology_split]":
                     topo_launches["split"]["key_stats"],
+                "routing_lookup[dense,chaos]":
+                    chaos_launches["recovery"]["route_keys"]
+                    + chaos_launches["autoscale"]["route_keys"],
+                "routing_lookup[per_tuple,object]":
+                    chaos_launches["object"]["route_keys"],
+                "key_stats[object]": chaos_launches["object"]["key_stats"],
                 "routing_lookup[per_tuple]": stats_launches["route_keys"],
                 "key_stats[zipf_tuples]": stats_launches["key_stats"],
                 "key_stats[stats_path]": stats_launches["key_stats"],

@@ -1,6 +1,9 @@
-"""Host control plane: the balancer and the interval rebalance controller."""
+"""Host control plane: the balancer, the interval rebalance controller and
+the autoscaling policy loop."""
 
 from . import balancer
+from .autoscale import (AutoscaleConfig, AutoscaleDecision, AutoscaleLoop,
+                        AutoscalePolicy, HeartbeatMonitor)
 from .balancer import (Assignment, BalanceConfig, ConsistentHash, Hash32,
                        KeyStats, ModHash, PartialKeyGrouping,
                        PartitionStrategy, PowerOfBothChoices, RebalanceResult,
@@ -12,4 +15,6 @@ __all__ = ["balancer", "Assignment", "BalanceConfig", "ConsistentHash",
            "Hash32", "KeyStats", "ModHash", "RebalanceResult", "metrics",
            "ControllerEvent", "RebalanceController", "PartitionStrategy",
            "TablePlanner", "PartialKeyGrouping", "PowerOfBothChoices",
-           "WChoices", "resolve_strategy", "strategy_names"]
+           "WChoices", "resolve_strategy", "strategy_names",
+           "AutoscaleConfig", "AutoscaleDecision", "AutoscaleLoop",
+           "AutoscalePolicy", "HeartbeatMonitor"]

@@ -58,7 +58,8 @@ def theta(loads_arr: np.ndarray) -> float:
 
     This is the form the paper's analysis actually uses (Lemma 3 defines
     theta_max = max_d (L(d) - L_bar)/L_bar) and the constraint every
-    algorithm enforces (L(d) <= L_max).
+    algorithm enforces (L(d) <= L_max). The two-sided variant is
+    :func:`theta_two_sided`.
     """
     mean = float(np.mean(loads_arr))
     if mean <= 0.0:
@@ -76,6 +77,13 @@ def theta_for(stats: KeyStats, assignment: Assignment) -> float:
     return theta(loads(stats, assignment))
 
 
+def theta_two_sided(loads_arr: np.ndarray) -> float:
+    """max_d |L(d) - mean| / mean (paper Sec. II-A's display form)."""
+    mean = float(np.mean(loads_arr))
+    if mean <= 0.0:
+        return 0.0
+    return float(np.max(np.abs(loads_arr - mean)) / mean)
+
 
 def skewness(loads_arr: np.ndarray) -> float:
     """max L(d) / mean L  (the 'workload skewness' metric of Sec. V)."""
@@ -85,7 +93,22 @@ def skewness(loads_arr: np.ndarray) -> float:
     return float(np.max(loads_arr) / mean)
 
 
+def migration_cost(stats: KeyStats, old: Assignment, new: Assignment) -> float:
+    """M_i(w, F, F') = sum of S(k, w) over Delta(F, F') (Eq. 2)."""
+    moved = old.dest(stats.keys) != new.dest(stats.keys)
+    return float(np.sum(stats.mem[moved]))
+
 
 def moved_keys(stats: KeyStats, old: Assignment, new: Assignment) -> np.ndarray:
     moved = old.dest(stats.keys) != new.dest(stats.keys)
     return stats.keys[moved]
+
+
+def migration_fraction(stats: KeyStats, old: Assignment,
+                       new: Assignment) -> float:
+    """Migration cost as a fraction of total maintained state (paper's
+    metric)."""
+    total = float(np.sum(stats.mem))
+    if total <= 0.0:
+        return 0.0
+    return migration_cost(stats, old, new) / total

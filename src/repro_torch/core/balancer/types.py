@@ -12,7 +12,7 @@ alongside so routing tables can be materialized for the data plane.
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Optional
+from typing import Callable, Dict, Optional
 
 import numpy as np
 
@@ -131,6 +131,11 @@ class Assignment:
             out = np.where(hit, tdest[pos], out)
         return out.astype(np.int64)
 
+    def dest_one(self, key: int) -> int:
+        if key in self.table:
+            return self.table[key]
+        return int(self.hash_router(np.asarray([key], dtype=np.int64))[0])
+
     def table_arrays(self, a_max: Optional[int] = None) -> tuple[Array, Array]:
         """(keys, dests) padded to a_max with key=-1 — data-plane handoff format."""
         n = len(self.table)
@@ -162,3 +167,19 @@ class RebalanceResult:
     feasible_table: bool              # |A'| <= A_max ?
     plan_time_s: float = 0.0          # wall time to produce the plan
     meta: Dict[str, float] = dataclasses.field(default_factory=dict)
+
+    def same_plan(self, other: "RebalanceResult") -> bool:
+        """Bit-identical plan equality: table, moved keys, loads and theta.
+
+        Holds an array-native plan against the scalar oracle's (timing
+        fields and meta are intentionally ignored).
+        """
+        return (self.assignment.table == other.assignment.table
+                and np.array_equal(np.sort(self.moved_keys),
+                                   np.sort(other.moved_keys))
+                and np.array_equal(self.loads, other.loads)
+                and self.theta == other.theta
+                and self.table_size == other.table_size)
+
+
+Algorithm = Callable[[KeyStats, Assignment, BalanceConfig], RebalanceResult]

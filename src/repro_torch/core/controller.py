@@ -275,3 +275,15 @@ class RebalanceController:
         self.assignment = interim
         self.assignment_version += 1
         return self.on_interval(stats, force=True)
+
+    # -- fleet health: straggler demotion (beyond the paper) ------------------
+    def derate_worker(self, d: int, factor: float,
+                      stats: KeyStats) -> ControllerEvent:
+        """Treat worker ``d`` as ``factor``x slower (straggler): inflate the
+        cost of its keys so the balancer migrates load away proportionally."""
+        dests = self.assignment.dest(stats.keys)
+        cost = stats.cost.copy()
+        cost[dests == d] *= factor
+        derated = KeyStats(keys=stats.keys, cost=cost, mem=stats.mem,
+                           freq=stats.freq)
+        return self.on_interval(derated, force=True)

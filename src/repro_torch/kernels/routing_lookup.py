@@ -24,6 +24,20 @@ Keys are tuple ids in ``[0, 2**31)``. As in the JAX package's
 first such slot, and key -1 is no exception: it matches an empty slot
 (key -1, dest 0) and takes the first one's dest. A key below -1 matches no
 slot and routes by its hash.
+
+The JAX package's ``core/routing.py`` (its jnp data plane, which only its
+tests import) is not copied; this module computes the same function:
+
+* ``hash_route(keys, n_dest, seed)`` — ``fmix32(k ^ seed) mod n_dest``,
+  :func:`route_plain` against an empty table (and ``Hash32`` on the host);
+* ``RoutingTableDev.from_assignment(assignment, a_max)`` (keys sorted
+  ascending, ``INT32_MAX`` padded) — ``RoutingTable.from_arrays(
+  *assignment.table_arrays(a_max), device)``, whose ``keys``/``dests`` are
+  the same sorted distinct keys and their dests;
+* ``route(keys, table, n_dest, seed)`` and ``route_tokens_to_shards`` —
+  :func:`route_keys` (the kernel for a CUDA tensor, :func:`route_plain`'s
+  binary search for a CPU tensor); ``route(keys, None, ...)`` is
+  ``hash_route``.
 """
 
 from __future__ import annotations

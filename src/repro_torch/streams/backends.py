@@ -13,8 +13,8 @@ The protocol (one instance per stage)::
                                         -> IntervalReport [,emits]
     migrate(keys, old, new)             -> bytes moved (protocol steps 5-6)
     extract_batch(task, keys) / install_batch(task, pack)
-                                        -> the ColumnarPack contract used by
-                                           scale_to
+                                        -> the ColumnarPack/ObjectPack
+                                           contract used by scale_to
     collect_stats(...)                  -> KeyStats (paper step 1), or
                                            SKETCH_PENDING in sketch mode
     checkpoint() / restore(ckpt)        -> cloned packs per task (+ extras);
@@ -23,10 +23,17 @@ The protocol (one instance per stage)::
 plus two classmethod selection hooks: :meth:`StateBackend.check` (raise
 ``ValueError`` when an explicit request is unsupported) and
 :meth:`StateBackend.auto_eligible` (may ``state_backend="auto"`` pick this
-backend?). Auto resolution order is device > columnar.
+backend?). Both take the stage's ``vectorized`` flag; ``auto_eligible``
+also takes its device. Auto resolution order is device > columnar > object.
 
-Two backends implement the protocol:
+Three backends implement the protocol:
 
+* :class:`ObjectBackend` — dict-of-KeyState stores, per-task segment
+  dispatch through ``Operator.process_batch``. Fully general: the only
+  backend for operators without a ``columnar_spec``, the store of the
+  per-tuple reference loop (``vectorized=False``), and the parity oracle.
+  On the ``"kernels"`` substrate its step-1 stats go through the
+  ``key_stats`` kernel, as the columnar backend's do.
 * :class:`ColumnarBackend` — flat per-task numpy arrays on the host, ONE
   whole-interval operator dispatch (``Operator.process_interval_batch``).
   On the ``"kernels"`` substrate its step-1 stats go through the
@@ -36,6 +43,10 @@ Two backends implement the protocol:
   through the routing kernel on the ``"kernels"`` substrate. It refuses
   choice routers: its dense-dest table is keyed on ``assignment_version``,
   and a router's destinations are not a function of the key.
+
+The host-store backends and the device backend call the stage's
+failure-injection seam at ``"mid"`` (state mutated, no report yet; see
+:mod:`.faults`).
 """
 
 from __future__ import annotations
@@ -49,7 +60,7 @@ from ..core.balancer import Assignment, Hash32, KeyStats, metrics
 from ..kernels.key_stats import key_sums
 from .device import DeviceStateFleet, DeviceTaskView, _to_host
 from .operators import _occurrence_index
-from .state import ColumnarStateStore
+from .state import ColumnarStateStore, TaskStateStore
 
 #: name -> backend class. Mutated only through :func:`register_backend`.
 BACKENDS: Dict[str, Type["StateBackend"]] = {}
@@ -88,26 +99,26 @@ def get_backend(name: str) -> Type["StateBackend"]:
     return BACKENDS[name]
 
 
-def resolve_backend(name: str, operator, controller,
+def resolve_backend(name: str, operator, controller, vectorized: bool,
                     device: torch.device) -> Type["StateBackend"]:
     """Map a ``state_backend=`` request to a backend class.
 
     Explicit names validate via :meth:`StateBackend.check` (raising
-    ``ValueError`` with the reason); ``"auto"`` walks device > columnar: the
-    device ring when the operator has device closed forms, the strategy is
-    a table planner, the router is Hash32 and the stage runs on a CUDA
-    device; else the columnar store."""
+    ``ValueError`` with the reason); ``"auto"`` walks device > columnar >
+    object: the device ring when the stage is vectorized, the operator has
+    device closed forms, the strategy is a table planner, the router is
+    Hash32 and the stage runs on a CUDA device; else the columnar store
+    when the operator has a ``columnar_spec`` and the stage is vectorized;
+    else the object store."""
     if name != "auto":
         cls = get_backend(name)
-        cls.check(operator, controller)
+        cls.check(operator, controller, vectorized)
         return cls
     for cand in ("device", "columnar"):
         cls = get_backend(cand)
-        if cls.auto_eligible(operator, controller, device):
+        if cls.auto_eligible(operator, controller, vectorized, device):
             return cls
-    raise ValueError(
-        f"no state backend supports operator {type(operator).__name__}: it "
-        "needs a columnar_spec (the object store is not ported yet)")
+    return BACKENDS["object"]
 
 
 def _is_hash32(controller) -> bool:
@@ -129,11 +140,12 @@ class StateBackend:
 
     # -- selection hooks -------------------------------------------------------
     @classmethod
-    def check(cls, operator, controller) -> None:
+    def check(cls, operator, controller, vectorized: bool) -> None:
         """Raise ``ValueError`` when an explicit request is unsupported."""
 
     @classmethod
-    def auto_eligible(cls, operator, controller, device) -> bool:
+    def auto_eligible(cls, operator, controller, vectorized: bool,
+                      device) -> bool:
         """May ``state_backend='auto'`` select this backend?"""
         return False
 
@@ -151,7 +163,9 @@ class StateBackend:
     def migrate(self, keys: np.ndarray, old: Assignment,
                 new: Assignment) -> float:
         """Array-at-a-time: one dest() call per assignment, group-by-source
-        extraction into packs, mask-split per destination, group installs."""
+        extraction into packs, mask-split per destination, group installs.
+        On the columnar backend a pack is a row slice of flat arrays; on the
+        object backend it is the keys plus their KeyState objects."""
         src = old.dest(keys)
         dst = new.dest(keys)
         moving = src != dst
@@ -269,6 +283,9 @@ class HostStoreBackend(StateBackend):
             self.dispatch_batch(iv, keys, dests, idx, values, task_cost,
                                 acc_keys, acc_cost, acc_freq, emit_acc)
         stage.clear_pause()
+        # fault seam: state is mutated, stores not yet advanced past the
+        # boundary, no report — a genuinely dirty mid-interval crash point
+        stage._failpoint("mid")
 
         held = [store.end_interval_collect(iv) for store in stage.stores]
 
@@ -377,21 +394,84 @@ def _assemble_emits(emit_acc) -> Tuple[np.ndarray, np.ndarray]:
 
 
 @register_backend
+class ObjectBackend(HostStoreBackend):
+    """Dict-of-KeyState stores, per-task segment dispatch.
+
+    Fully general (payloads are arbitrary Python objects): the only backend
+    custom per-tuple operators can use, the store of the per-tuple reference
+    path, and the parity oracle for every other backend."""
+
+    name = "object"
+
+    def new_store(self):
+        return TaskStateStore(self.stage.window)
+
+    def dispatch_batch(self, iv, bkeys, bdests, abs_idx, values, task_cost,
+                       acc_keys, acc_cost, acc_freq, emit_acc=None):
+        """Partition per task via argsort + segment boundaries and call the
+        operator's batched kernel per segment."""
+        stage = self.stage
+        order = np.argsort(bdests, kind="stable")
+        sorted_dests = bdests[order]
+        bounds = np.searchsorted(sorted_dests, np.arange(stage.n_tasks + 1))
+        needs_values = stage.operator.needs_values
+        values_arr = values if isinstance(values, np.ndarray) else None
+        for d in range(stage.n_tasks):
+            s0, s1 = bounds[d], bounds[d + 1]
+            if s0 == s1:
+                continue
+            seg = order[s0:s1]
+            kseg = bkeys[seg]
+            vseg: Optional[Sequence[Any]] = None
+            if needs_values:
+                if values is None:
+                    # match the reference path: absent payloads flow as None
+                    vseg = [None] * len(seg)
+                elif values_arr is not None:
+                    vseg = values_arr[abs_idx[seg]]
+                else:
+                    vseg = [values[i] for i in abs_idx[seg]]
+            if emit_acc is None:
+                res = stage.operator.process_batch(stage.stores[d], iv, kseg,
+                                                   vseg)
+            else:
+                res, ecounts, ekeys, evals = \
+                    stage.operator.process_batch_emits(stage.stores[d], iv,
+                                                       kseg, vseg)
+                if ekeys.size:
+                    emit_acc.append((np.repeat(abs_idx[seg], ecounts),
+                                     ekeys, evals))
+            task_cost[d] += res.task_cost
+            acc_keys.append(res.uniq_keys)
+            acc_cost.append(res.key_cost)
+            acc_freq.append(res.key_freq)
+            for ok, ov in res.outputs:
+                stage.outputs[ok] = ov
+            stage.emitted_sum += res.emit_sum
+
+
+@register_backend
 class ColumnarBackend(HostStoreBackend):
     """Flat per-task arrays + ONE whole-interval operator dispatch."""
 
     name = "columnar"
 
     @classmethod
-    def check(cls, operator, controller):
+    def check(cls, operator, controller, vectorized):
         if getattr(operator, "columnar_spec", None) is None:
             raise ValueError(
                 f"state_backend='columnar' requires an operator with a "
-                f"columnar_spec; {type(operator).__name__} has none")
+                f"columnar_spec; {type(operator).__name__} has none "
+                "(custom per-tuple operators need the object store)")
+        if not vectorized:
+            raise ValueError("state_backend='columnar' requires "
+                             "vectorized=True (the per-tuple reference "
+                             "path uses scalar state access)")
 
     @classmethod
-    def auto_eligible(cls, operator, controller, device):
-        return getattr(operator, "columnar_spec", None) is not None
+    def auto_eligible(cls, operator, controller, vectorized, device):
+        return vectorized and getattr(operator, "columnar_spec", None) \
+            is not None
 
     def new_store(self):
         return ColumnarStateStore(self.stage.window,
@@ -453,7 +533,11 @@ class DeviceBackend(StateBackend):
         return self._fleet
 
     @classmethod
-    def check(cls, operator, controller):
+    def check(cls, operator, controller, vectorized):
+        if not vectorized:
+            raise ValueError(f"state_backend={cls.name!r} requires "
+                             "vectorized=True (the per-tuple reference path "
+                             "uses scalar state access)")
         if controller.strategy.is_router:
             raise ValueError(
                 f"state_backend={cls.name!r} requires an assignment-driven "
@@ -474,8 +558,8 @@ class DeviceBackend(StateBackend):
                 f"(device-canonical fmix32); got {type(router).__name__}")
 
     @classmethod
-    def auto_eligible(cls, operator, controller, device):
-        return (not controller.strategy.is_router
+    def auto_eligible(cls, operator, controller, vectorized, device):
+        return (vectorized and not controller.strategy.is_router
                 and getattr(operator, "columnar_spec", None) is not None
                 and getattr(operator, "device_mode", None) is not None
                 and _is_hash32(controller)
@@ -699,6 +783,9 @@ class DeviceBackend(StateBackend):
                 fleet.mem[:dom][~alive] = 0.0
             stats = self.collect_stats(None, None, None, None)
 
+        # fault seam: device state and host mirrors are mutated (and in
+        # sketch mode the controller's sketch already ingested), no report
+        stage._failpoint("mid")
         report = stage._finish_interval(iv, n, task_cost, buffered_count,
                                         stats)
         if not collect_emits:

@@ -4,20 +4,22 @@ The recovery story rides entirely on seams that already exist:
 
 * **State** travels as the same packs the migration path uses —
   :meth:`StateBackend.checkpoint` extracts every task's held keys through
-  ``extract_batch``, clones the
-  :class:`~repro_torch.streams.state.ColumnarPack` and installs it straight
-  back, so a checkpoint is observationally transparent on both backends
-  (columnar and device; the device backend also carries its ring-column
-  clock).
+  ``extract_batch``, clones the pack (``ObjectPack`` deepcopies its live
+  ``KeyState`` refs; ``ColumnarPack`` rows are copied arrays) and installs
+  it straight back, so a checkpoint is observationally transparent on every
+  backend (object, columnar and device; the device backend also carries
+  its ring-column clock).
 * **Routing** travels as :meth:`RebalanceController.state_dict` —
   assignment table + hash router, ``assignment_version``, interval clock,
   trigger history, and (in sketch mode) the CMS/SpaceSaving contents via
   their own ``state_dict`` seams.
 * **Time** is the interval boundary: a :class:`StageCheckpoint` is only
-  meaningful *between* intervals. Restoring rewinds the stage clock, so
-  replaying the intervals after the checkpoint reproduces the original
+  meaningful *between* intervals, which is exactly when
+  :class:`~repro_torch.streams.faults.ChaosRunner` takes them. Restoring
+  rewinds the stage clock, so replaying the intervals after the checkpoint
+  reproduces the original
   :class:`~repro_torch.streams.engine.IntervalReport` stream bit-for-bit
-  (``tests/test_torch_topology.py``).
+  (``tests/test_torch_topology.py``, ``tests/test_torch_faults.py``).
 
 Durability uses the classic tmp-file + ``os.replace`` + manifest dance:
 :class:`CheckpointStore` writes ``ckpt_<interval>.pkl`` atomically first,
@@ -50,7 +52,7 @@ __all__ = [
 class StageCheckpoint:
     """Everything needed to rebuild one KeyedStage at an interval boundary.
 
-    ``packs`` holds one cloned ``ColumnarPack`` per task (what the
+    ``packs`` holds one cloned state pack per task (the same pack types the
     migration path moves); ``backend_extra`` carries backend-private extras
     (the device fleet's ring-column clock ``col_iv`` — empty packs cannot
     carry it). ``pending_delta`` / ``migrated_bytes_pending`` /
@@ -113,7 +115,8 @@ def restore_stage(stage, ckpt: StageCheckpoint) -> None:
     window — but may be freshly constructed or mid-run with arbitrary state:
     everything run-dependent is overwritten. One checkpoint object restores
     any number of times (packs are re-cloned on install, the controller
-    state is re-copied on load).
+    state is re-copied on load), which is what lets the chaos runner retry
+    a replay that itself hits an injected fault.
     """
     if ckpt.backend != stage.state_backend:
         raise ValueError(
@@ -127,6 +130,9 @@ def restore_stage(stage, ckpt: StageCheckpoint) -> None:
     stage.backend.restore(ckpt)
     stage.n_tasks = ckpt.n_tasks
     stage._interval = ckpt.interval
+    # the per-tuple loop's membership set is rebuilt from the array on its
+    # next interval; a set left from before the restore would be stale
+    stage._pending_delta = None
     stage._pending_delta_arr = (ckpt.pending_delta.copy()
                                 if ckpt.pending_delta is not None else None)
     stage._migrated_bytes_pending = float(ckpt.migrated_bytes_pending)

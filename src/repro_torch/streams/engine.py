@@ -15,9 +15,21 @@ Storm).
 
 :class:`KeyedStage` owns what is backend-independent: routing
 (``_dest_batch``), the controller handoff and report assembly
-(``_finish_interval``), the pause-window clock and elastic scaling.
-Everything state-shaped lives behind the
-:class:`~repro_torch.streams.backends.StateBackend` protocol.
+(``_finish_interval``), the pause-window clock, elastic scaling, the
+failure-injection seam and the per-tuple reference loop
+(``vectorized=False``) that serves as the parity oracle. Everything
+state-shaped lives behind the
+:class:`~repro_torch.streams.backends.StateBackend` protocol: the object,
+columnar and device backends.
+
+Failure injection
+-----------------
+``stage.failpoint``, when set, is called as ``failpoint(site, stage)`` at
+the engine's two crash sites: ``"deliver"`` (the interval's traffic has
+arrived, nothing has mutated) and ``"mid"`` (state mutated, no report
+yet). ``None`` (the default) costs one attribute test per site.
+:mod:`repro_torch.streams.faults` installs its injector there and recovers
+by restore and replay (:class:`~repro_torch.streams.faults.ChaosRunner`).
 
 Choice routers
 --------------
@@ -40,8 +52,10 @@ Substrate flag
 --------------
 ``substrate="numpy"`` (default) computes routing and step-1 stats on host
 numpy. ``substrate="kernels"`` routes through the F(k) routing kernel
-(:mod:`repro_torch.kernels.routing_lookup`) and, on the columnar backend,
-aggregates step-1 stats through the ``key_stats`` kernel. The assignment's
+(:mod:`repro_torch.kernels.routing_lookup`) and, on the host-store backends
+(object and columnar), aggregates step-1 stats through the ``key_stats``
+kernel; the per-tuple reference loop routes through the kernel too, and
+keeps its dict-based stats. The assignment's
 hash router must be :class:`~repro_torch.core.balancer.Hash32` and key ids
 must fit int32. Stats come back float32, so reports match numpy to ~1e-6
 relative rather than bit-for-bit.
@@ -59,14 +73,13 @@ Device
 ------
 ``device=None`` means the CUDA card and raises ``RuntimeError`` when there
 is none; ``device="cpu"`` runs every kernel's plain PyTorch version on the
-CPU (the tests do). The JAX package's per-tuple reference loop
-(``vectorized=False``), object store and failure-injection seam are not
-ported yet.
+CPU (the tests do).
 """
 
 from __future__ import annotations
 
 import dataclasses
+from collections import defaultdict
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -80,7 +93,7 @@ from .device import resolve_device
 from .operators import Operator
 
 SUBSTRATES = ("numpy", "kernels")
-STATE_BACKENDS = ("auto", "columnar", "device")
+STATE_BACKENDS = ("auto", "columnar", "object", "device")
 
 
 @dataclasses.dataclass
@@ -103,13 +116,21 @@ class KeyedStage:
     """N_D task instances + controller-owned assignment (one logical operator).
 
     Args:
+      vectorized: the array-at-a-time backends (default). ``False`` selects
+        the per-tuple reference loop on the object store — same results,
+        far slower; kept as the parity oracle and as executable
+        documentation.
       substrate: ``"numpy"`` or ``"kernels"`` — see the module docstring.
       state_backend: ``"columnar"`` (flat per-task host arrays, one
-        whole-interval operator dispatch), ``"device"`` (a dense key-indexed
+        whole-interval operator dispatch), ``"object"`` (dict-of-KeyState
+        stores, per-task segment dispatch: the only store for operators
+        without a ``columnar_spec``), ``"device"`` (a dense key-indexed
         ring on ``device``, one step per interval; see
         :mod:`repro_torch.streams.device`) or ``"auto"`` (device when the
-        operator has device closed forms, the strategy is a table planner,
-        the router is Hash32 and the stage runs on CUDA; else columnar).
+        stage is vectorized, the operator has device closed forms, the
+        strategy is a table planner, the router is Hash32 and the stage
+        runs on CUDA; else columnar when the operator has a
+        ``columnar_spec`` and the stage is vectorized; else object).
       device: where the device ring and the kernels run; ``None`` = CUDA.
       device_domain_max: the device backend allocates dense state per key
         id; ids at or above this bound raise.
@@ -120,6 +141,7 @@ class KeyedStage:
     def __init__(self, operator: Operator, controller: RebalanceController,
                  window: int = 1, migration_bandwidth: float = 1e6,
                  micro_batches: int = 8, migration_batches: int = 2,
+                 vectorized: bool = True,
                  substrate: str = "numpy", state_backend: str = "auto",
                  device=None, stats_dense_max: int = 1 << 20,
                  device_domain_max: int = 1 << 22, algorithm=None):
@@ -147,6 +169,7 @@ class KeyedStage:
         self.migration_bandwidth = migration_bandwidth
         self.micro_batches = micro_batches
         self.migration_batches = migration_batches
+        self.vectorized = vectorized
         self.substrate = substrate
         self.stats_dense_max = stats_dense_max
         self.reports: List[IntervalReport] = []
@@ -154,14 +177,20 @@ class KeyedStage:
         self.emitted_sum = 0.0                      # running sum of numeric emits
         self.last_stats: Optional[KeyStats] = None
         self._interval = 0
-        self._pending_delta_arr: Optional[np.ndarray] = None  # paused keys
+        self._pending_delta: Optional[set] = None   # paused keys (set)
+        self._pending_delta_arr: Optional[np.ndarray] = None
         self._migrated_bytes_pending = 0.0
         self._plan_time_pending = 0.0
         self._table_capacity = 0      # routing-table pad, high-water mark
         self._route_cache = None      # (cache key, RoutingTable)
+        #: failure-injection seam (repro_torch.streams.faults): when set,
+        #: called as ``failpoint(site, stage)`` at the engine's crash points
+        #: — "deliver" (before any mutation) and "mid" (state mutated, no
+        #: report yet)
+        self.failpoint = None
         # backend selection (and its support errors) precedes substrate init
         backend_cls = resolve_backend(state_backend, operator, controller,
-                                      self.device)
+                                      vectorized, self.device)
         if substrate == "kernels":
             self._init_kernels()
         self.backend = backend_cls(self)
@@ -178,6 +207,11 @@ class KeyedStage:
                 f"canonical fmix32); got {type(router).__name__}")
         self._hash_seed = router.seed
 
+    # -- failure-injection seam (repro_torch.streams.faults) -------------------
+    def _failpoint(self, site: str) -> None:
+        if self.failpoint is not None:
+            self.failpoint(site, self)
+
     # -- pause-window clock (protocol steps 4/7) --------------------------------
     def begin_interval(self) -> int:
         self._interval += 1
@@ -193,6 +227,7 @@ class KeyedStage:
         return int(edges[min(self.migration_batches, self.micro_batches)])
 
     def clear_pause(self) -> None:
+        self._pending_delta = None
         self._pending_delta_arr = None
 
     # -- migration executor (paper steps 5-6) -----------------------------------
@@ -202,14 +237,28 @@ class KeyedStage:
         the stall and opens the pause window for Delta(F, F')."""
         keys = np.asarray(moved_keys, dtype=np.int64)
         self._migrated_bytes_pending += self.backend.migrate(keys, old, new)
+        # the reference loop materializes the membership set lazily; the
+        # vectorized backends only ever consult the array (np.isin)
+        self._pending_delta = None
         self._pending_delta_arr = keys
 
     # -- one interval of traffic ------------------------------------------------
+    def process_interval(self, tuples: Sequence[Tuple[int, Any]]
+                         ) -> IntervalReport:
+        """Process one interval given ``(key, value)`` tuples (list API)."""
+        keys = np.fromiter((k for k, _ in tuples), dtype=np.int64,
+                           count=len(tuples))
+        values = [v for _, v in tuples]
+        return self.process_interval_arrays(keys, values)
+
     def process_interval_arrays(self, keys: np.ndarray,
                                 values: Optional[Sequence[Any]] = None
                                 ) -> IntervalReport:
         """Array-native entry point: ``keys`` as int64 array, ``values`` as an
         aligned sequence (or None when the operator reads no payloads)."""
+        self._failpoint("deliver")
+        if not self.vectorized:
+            return self._process_interval_reference(keys, values)
         return self.backend.process_interval(keys, values)
 
     def process_interval_emits(self, keys: np.ndarray,
@@ -218,7 +267,12 @@ class KeyedStage:
                                           np.ndarray]:
         """Process one interval and also return the operator's emit stream
         ``(report, emit_keys, emit_values)``, ordered by source-tuple
-        position."""
+        position (one tuple's fan-out emits stay adjacent, in emit order);
+        every engine path produces this exact stream."""
+        self._failpoint("deliver")
+        if not self.vectorized:
+            return self._process_interval_reference(keys, values,
+                                                    collect_emits=True)
         return self.backend.process_interval(keys, values, collect_emits=True)
 
     def _dest_batch(self, keys: np.ndarray) -> np.ndarray:
@@ -290,6 +344,111 @@ class KeyedStage:
             if ev.result is not None:
                 self._plan_time_pending = ev.result.plan_time_s
         return report
+
+    # -- reference per-tuple path (parity oracle; vectorized=False) ------------
+    def _process_interval_reference(self, keys: np.ndarray,
+                                    values: Optional[Sequence[Any]],
+                                    collect_emits: bool = False):
+        iv = self.begin_interval()
+        n = int(keys.shape[0])
+        vals = values if values is not None else [None] * n
+        if self._pending_delta is None and self._pending_delta_arr is not None:
+            self._pending_delta = set(self._pending_delta_arr.tolist())
+        task_cost = np.zeros(self.n_tasks)
+        key_cost: Dict[int, float] = defaultdict(float)
+        key_freq: Dict[int, float] = defaultdict(float)
+        buffer: List[Tuple[int, int, Any]] = []      # (position, key, value)
+        buffered_count = 0
+        emit_log: Optional[List[Tuple[int, int, Any]]] = \
+            [] if collect_emits else None
+
+        dests = self._dest_batch(keys) if n else np.zeros(0, np.int64)
+
+        batch_edges = np.linspace(0, n, self.micro_batches + 1).astype(int)
+        for b in range(self.micro_batches):
+            lo, hi = batch_edges[b], batch_edges[b + 1]
+            migrating = (self._pending_delta is not None
+                         and b < self.migration_batches)
+            if not migrating and buffer:
+                # Resume: replay buffered tuples with the CURRENT assignment
+                for pos, k, v in buffer:
+                    d = int(self.controller.assignment.dest(
+                        np.asarray([k], dtype=np.int64))[0])
+                    self._run_one(d, iv, k, v, pos, task_cost, key_cost,
+                                  key_freq, emit_log)
+                buffer.clear()
+                self.clear_pause()
+            for i in range(lo, hi):
+                k, v = int(keys[i]), vals[i]
+                if migrating and k in self._pending_delta:
+                    buffer.append((i, k, v))        # Pause: cache locally
+                    buffered_count += 1
+                    continue
+                self._run_one(int(dests[i]), iv, k, v, i, task_cost, key_cost,
+                              key_freq, emit_log)
+        if buffer:                                   # traffic ended mid-pause
+            for pos, k, v in buffer:
+                d = int(self.controller.assignment.dest(
+                    np.asarray([k], dtype=np.int64))[0])
+                self._run_one(d, iv, k, v, pos, task_cost, key_cost, key_freq,
+                              emit_log)
+            buffer.clear()
+        self.clear_pause()
+        self._failpoint("mid")
+
+        for store in self.stores:
+            store.end_interval(iv)
+
+        stats = self._collect_stats(key_cost, key_freq)
+        report = self._finish_interval(iv, n, task_cost, buffered_count, stats)
+        if not collect_emits:
+            return report
+        # canonical order = source position (replays keep their original
+        # position, and a tuple's emits were appended contiguously)
+        emit_log.sort(key=lambda t: t[0])
+        ekeys = np.asarray([k for _, k, _ in emit_log], dtype=np.int64)
+        evals = np.asarray([v for _, _, v in emit_log])
+        return report, ekeys, evals
+
+    def _run_one(self, d: int, interval: int, key: int, value: Any, pos: int,
+                 task_cost, key_cost, key_freq, emit_log=None) -> None:
+        outs, cost = self.operator.process(self.stores[d], interval, key, value)
+        task_cost[d] += cost
+        key_cost[key] += cost
+        key_freq[key] += 1
+        for ok, ov in outs:
+            self.outputs[ok] = ov
+            if isinstance(ov, (int, float)):
+                self.emitted_sum += float(ov)
+            if emit_log is not None:
+                emit_log.append((pos, ok, ov))
+
+    def _collect_stats(self, key_cost, key_freq) -> Optional[KeyStats]:
+        # Paper step 1: every instance reports c(k) AND S(k,w) for each key
+        # *assigned to it* — the stat universe is (keys seen this interval)
+        # UNION (keys still holding window state). Omitting quiet stateful
+        # keys would let a table cleanup strand their state on the old task.
+        sizes: Dict[int, float] = {}
+        for store in self.stores:
+            sizes.update(store.sizes())
+        universe = set(key_cost) | set(sizes)
+        if not universe:
+            return None
+        keys = np.fromiter(sorted(universe), dtype=np.int64, count=len(universe))
+        cost = np.fromiter((key_cost.get(int(k), 0.0) for k in keys),
+                           dtype=np.float64)
+        freq = np.fromiter((key_freq.get(int(k), 0.0) for k in keys),
+                           dtype=np.float64)
+        mem = np.fromiter((sizes.get(int(k), 0.0) for k in keys),
+                          dtype=np.float64)
+        if self.controller.stats_mode == "sketch":
+            # the reference loop is dict-based (it materializes the exact
+            # universe anyway), but in sketch mode it still hands off
+            # through the sketch so the controller plans on the same
+            # head-only contract as the vectorized backends
+            self.controller.ingest(keys, cost, mem=mem, freq=freq)
+            return SKETCH_PENDING
+        return KeyStats(keys=keys, cost=cost, mem=mem, freq=freq)
 
     # -- elastic scaling (paper Fig. 15) ----------------------------------------
     def scale_to(self, n_tasks: int) -> None:

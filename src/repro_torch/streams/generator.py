@@ -10,7 +10,7 @@ reaches ``|L_i(d) - L_{i-1}(d)| / L_{i-1}(d) >= f`` (the paper's rule).
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Iterator, Optional
 
 import numpy as np
 
@@ -95,3 +95,7 @@ class WorkloadGen:
         """Sample n concrete tuple keys from the current distribution."""
         p = self.freq / self.freq.sum()
         return self.rng.choice(self.keys, size=n, p=p)
+
+    def stream(self, assignment: Assignment, n: int) -> Iterator[KeyStats]:
+        for i in range(n):
+            yield self.interval(assignment, fluctuate=i > 0)

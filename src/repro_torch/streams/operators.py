@@ -12,9 +12,20 @@ and merge operators, and a stateless selection.
 * :class:`MergeCounts` — PKG's downstream merger: a running max per key.
 * :class:`Filter` — stateless selection ahead of a keyed stage.
 
-Each operator's windowed state is one numeric slot per (key, interval),
-declared by a :class:`~repro_torch.streams.state.ColumnarSpec`. Two closed
-forms serve the two backends:
+Every operator has three forms, one per kind of store:
+
+* :meth:`Operator.process` — one tuple against the object store
+  (:class:`~repro_torch.streams.state.TaskStateStore`): the per-tuple
+  reference loop (``KeyedStage(vectorized=False)``). Custom operators need
+  only this; the base class's :meth:`Operator.process_batch` /
+  :meth:`Operator.process_batch_emits` then loop over it, so they stay
+  correct (not fast) on the object backend's per-task dispatch. The
+  built-ins override both with closed forms: a key hit ``m`` times in a
+  segment updates its state once and derives the same emits and costs.
+
+Each built-in's windowed state is also one numeric slot per (key,
+interval), declared by a :class:`~repro_torch.streams.state.ColumnarSpec`,
+so two more closed forms serve the array backends:
 
 * :meth:`Operator.process_interval_batch` — the columnar store fleet: one
   ``np.lexsort`` on ``(dest, key)`` yields every task's segment, every
@@ -27,8 +38,8 @@ forms serve the two backends:
 Emits: the j-th tuple of a key in an interval emits an arithmetic-
 progression term, so the full emit stream (``process_interval_emits``) is
 derived in closed form too; a multi-stage topology chains stages through
-it. The JAX package's per-tuple ``process`` path and object store are not
-ported yet.
+it. Set ``needs_values = False`` on operators whose ``process_batch`` never
+reads tuple payloads, so the object backend skips gathering them.
 """
 
 from __future__ import annotations
@@ -38,7 +49,34 @@ from typing import Any, List, Optional, Sequence, Tuple
 
 import numpy as np
 
-from .state import ColumnarSpec
+from .state import ColumnarSpec, TaskStateStore
+
+
+@dataclasses.dataclass
+class BatchResult:
+    """What one :meth:`Operator.process_batch` call produced.
+
+    The engine folds these straight into its array accumulators (per-task
+    cost, per-key cost/freq via ``np.add.at``) — no per-tuple Python on the
+    hot path.
+
+    Attributes:
+      uniq_keys: (U,) int64 — unique keys of the segment, sorted ascending.
+      key_cost:  (U,) float64 — summed c(k) contribution per unique key.
+      key_freq:  (U,) float64 — tuple count per unique key.
+      task_cost: total cost charged to the task (== key_cost.sum()).
+      outputs:   final (key, value) emit per key — the last emit the
+                 per-tuple path would have written (downstream is last-wins).
+      emit_sum:  sum of *all* numeric emitted values the per-tuple path
+                 would have produced (not just the final ones).
+    """
+
+    uniq_keys: np.ndarray
+    key_cost: np.ndarray
+    key_freq: np.ndarray
+    task_cost: float
+    outputs: List[Tuple[int, Any]]
+    emit_sum: float
 
 
 @dataclasses.dataclass
@@ -156,8 +194,24 @@ def _numeric_emit_sum(vals) -> float:
     return float(sum(float(v) for v in vals if isinstance(v, (int, float))))
 
 
+def _group_values(inv: np.ndarray, counts: np.ndarray,
+                  values: Sequence[Any]) -> List[List[Any]]:
+    """Split ``values`` into per-unique-key lists (stream order preserved)."""
+    order = np.argsort(inv, kind="stable")
+    bounds = np.concatenate(([0], np.cumsum(counts)))
+    if isinstance(values, np.ndarray):
+        vs = values[order]
+        return [vs[bounds[u]:bounds[u + 1]].tolist()
+                for u in range(len(counts))]
+    return [[values[i] for i in order[bounds[u]:bounds[u + 1]]]
+            for u in range(len(counts))]
+
+
 class Operator:
     name = "op"
+    #: set False when ``process_batch`` never reads tuple payloads — lets the
+    #: object backend skip gathering per-segment value lists entirely.
+    needs_values = True
     #: one numeric slot per (key, interval); see ColumnarSpec
     columnar_spec: Optional[ColumnarSpec] = None
     #: whether the columnar whole-interval path reads tuple payloads
@@ -212,9 +266,78 @@ class Operator:
         """
         raise NotImplementedError
 
+    def process(self, store: TaskStateStore, interval: int, key: int,
+                value: Any) -> Tuple[List[Tuple[int, Any]], float]:
+        """Returns (output tuples, cost units consumed)."""
+        raise NotImplementedError
+
+    def process_batch(self, store: TaskStateStore, interval: int,
+                      keys: np.ndarray,
+                      values: Optional[Sequence[Any]]) -> BatchResult:
+        """Process one task's micro-batch segment; default per-tuple fallback.
+
+        Semantically equivalent to calling :meth:`process` for each tuple in
+        stream order — delegates to :meth:`process_batch_emits` (one shared
+        accumulation loop) and drops the emit stream. Built-in operators
+        override both with vectorized closed forms; custom operators inherit
+        the loop and remain correct.
+        """
+        res, _, _, _ = self.process_batch_emits(store, interval, keys, values)
+        return res
+
+    def process_batch_emits(self, store: TaskStateStore, interval: int,
+                            keys: np.ndarray,
+                            values: Optional[Sequence[Any]]
+                            ) -> Tuple[BatchResult, np.ndarray, np.ndarray,
+                                       np.ndarray]:
+        """Like :meth:`process_batch`, plus the full emit stream.
+
+        Returns ``(result, emit_counts, emit_keys, emit_values)``:
+        ``emit_counts`` is (len(keys),) int64 — emits produced by each input
+        tuple; ``emit_keys``/``emit_values`` list those emits in input order
+        (all emits of tuple i precede those of tuple i+1, each a scalar).
+        The engine uses this to hand a stage's output to the next stage of a
+        Topology as arrays. The state update happens exactly once — callers
+        invoke either this or ``process_batch``, never both. Default:
+        per-tuple fallback; built-ins override with closed forms.
+        """
+        key_cost: dict = {}
+        key_freq: dict = {}
+        outputs: dict = {}
+        emit = 0.0
+        total = 0.0
+        n = len(keys)
+        counts = np.zeros(n, dtype=np.int64)
+        ekeys: List[int] = []
+        evals: List[Any] = []
+        vals = values if values is not None else [None] * n
+        for i, (k, v) in enumerate(zip(keys.tolist(), vals)):
+            outs, cost = self.process(store, interval, k, v)
+            total += cost
+            key_cost[k] = key_cost.get(k, 0.0) + cost
+            key_freq[k] = key_freq.get(k, 0.0) + 1.0
+            counts[i] = len(outs)
+            for ok, ov in outs:
+                outputs[ok] = ov
+                ekeys.append(ok)
+                evals.append(ov)
+                if isinstance(ov, (int, float)):
+                    emit += float(ov)
+        uniq = np.fromiter(sorted(key_cost), dtype=np.int64, count=len(key_cost))
+        res = BatchResult(
+            uniq_keys=uniq,
+            key_cost=np.fromiter((key_cost[int(k)] for k in uniq),
+                                 dtype=np.float64, count=len(uniq)),
+            key_freq=np.fromiter((key_freq[int(k)] for k in uniq),
+                                 dtype=np.float64, count=len(uniq)),
+            task_cost=total, outputs=list(outputs.items()), emit_sum=emit)
+        return (res, counts, np.asarray(ekeys, dtype=np.int64),
+                np.asarray(evals))
+
 
 class WordCount(Operator):
     name = "wordcount"
+    needs_values = False
     columnar_needs_values = False
     device_mode = "add"
     device_unit_cost = True
@@ -223,6 +346,53 @@ class WordCount(Operator):
         self.bytes_per_entry = bytes_per_entry
         self.columnar_spec = ColumnarSpec(mode="add",
                                           slot_bytes=bytes_per_entry)
+
+    def process(self, store, interval, key, value):
+        ks = store.state(key)
+        sl = ks.slice_for(interval, init=lambda: {"count": 0},
+                          size=self.bytes_per_entry)
+        sl.payload["count"] += 1
+        total = sum(s.payload["count"] for s in ks.iter_window())
+        return [(key, total)], 1.0
+
+    def _apply_counts(self, store, interval, uniq, counts):
+        """One state update per unique key; returns pre-batch window totals."""
+        pairs = store.update_many(interval, uniq, init=lambda: {"count": 0},
+                                  size=self.bytes_per_entry)
+        c0s = np.empty(len(uniq), dtype=np.int64)
+        for i, (m, (ks, sl)) in enumerate(zip(counts.tolist(), pairs)):
+            c0 = 0
+            for s in ks.slices.values():
+                c0 += s.payload["count"]
+            sl.payload["count"] += m
+            c0s[i] = c0
+        return c0s
+
+    def _batch_result(self, uniq, counts, c0s, n):
+        # emits per key are the running totals c0+1 .. c0+m: their sum and
+        # the final (last-wins) value are exact integer arithmetic
+        totals = c0s + counts
+        outputs = list(zip(uniq.tolist(), totals.tolist()))
+        emit = float(np.dot(counts, c0s) + np.dot(counts, counts + 1) / 2.0)
+        freq = counts.astype(np.float64)
+        return BatchResult(uniq, freq.copy(), freq, float(n), outputs, emit)
+
+    def process_batch(self, store, interval, keys, values):
+        # m tuples on a key whose window already counts c0 emit the running
+        # totals c0+1 .. c0+m; one state update per unique key.
+        uniq, counts = np.unique(keys, return_counts=True)
+        c0s = self._apply_counts(store, interval, uniq, counts)
+        return self._batch_result(uniq, counts, c0s, len(keys))
+
+    def process_batch_emits(self, store, interval, keys, values):
+        uniq, inv, counts = np.unique(keys, return_inverse=True,
+                                      return_counts=True)
+        c0s = self._apply_counts(store, interval, uniq, counts)
+        res = self._batch_result(uniq, counts, c0s, len(keys))
+        # the j-th occurrence of a key emits its running total c0 + j
+        evals = c0s[inv] + _occurrence_index(inv, counts) + 1
+        return (res, np.ones(len(keys), dtype=np.int64),
+                keys.astype(np.int64, copy=False), evals)
 
     def process_interval_batch(self, stores, interval, keys, dests, n_tasks,
                                values, collect_emits):
@@ -250,7 +420,61 @@ class WindowedSelfJoin(Operator):
         self.bytes_per_tuple = bytes_per_tuple
         self.probe_cost = probe_cost
         self.columnar_spec = ColumnarSpec(mode="add", slot_bytes=0.0,
-                                          bytes_per_unit=bytes_per_tuple)
+                                          bytes_per_unit=bytes_per_tuple,
+                                          payload="tuples")
+
+    def process(self, store, interval, key, value):
+        ks = store.state(key)
+        matches = 0
+        for sl in ks.iter_window():
+            matches += len(sl.payload)
+        cur = ks.slice_for(interval, init=list, size=0.0)
+        cur.payload.append(value)
+        cur.size += self.bytes_per_tuple
+        # one output per match; cost = insert + probes over window
+        cost = 1.0 + self.probe_cost * matches
+        return [(key, matches)], cost
+
+    def _batch_core(self, store, interval, keys, values, uniq, inv, counts):
+        # the j-th of m tuples on a key with c0 window entries probes
+        # c0 + (j-1) matches, so total probes = m*c0 + m(m-1)/2 and the last
+        # emit is c0 + m - 1; cost = m inserts + probe_cost * total probes.
+        grouped = _group_values(inv, counts, values)
+        pairs = store.update_many(interval, uniq, init=list, size=0.0)
+        outputs = []
+        emit = 0.0
+        key_cost = np.empty(len(uniq), dtype=np.float64)
+        c0s = np.empty(len(uniq), dtype=np.int64)
+        for u, (k, m, (ks, cur)) in enumerate(
+                zip(uniq.tolist(), counts.tolist(), pairs)):
+            c0 = sum(len(sl.payload) for sl in ks.iter_window())
+            cur.payload.extend(grouped[u])
+            cur.size += self.bytes_per_tuple * m
+            probes = m * c0 + m * (m - 1) / 2.0
+            emit += probes
+            outputs.append((k, c0 + m - 1))
+            key_cost[u] = m * 1.0 + self.probe_cost * probes
+            c0s[u] = c0
+        res = BatchResult(uniq, key_cost, counts.astype(np.float64),
+                          float(key_cost.sum()), outputs, emit)
+        return res, c0s
+
+    def process_batch(self, store, interval, keys, values):
+        uniq, inv, counts = np.unique(keys, return_inverse=True,
+                                      return_counts=True)
+        res, _ = self._batch_core(store, interval, keys, values, uniq, inv,
+                                  counts)
+        return res
+
+    def process_batch_emits(self, store, interval, keys, values):
+        uniq, inv, counts = np.unique(keys, return_inverse=True,
+                                      return_counts=True)
+        res, c0s = self._batch_core(store, interval, keys, values, uniq, inv,
+                                    counts)
+        # the j-th occurrence emits its probe-time match count c0 + (j-1)
+        evals = c0s[inv] + _occurrence_index(inv, counts)
+        return (res, np.ones(len(keys), dtype=np.int64),
+                keys.astype(np.int64, copy=False), evals)
 
     def process_interval_batch(self, stores, interval, keys, dests, n_tasks,
                                values, collect_emits):
@@ -290,6 +514,7 @@ class PartialWordCount(Operator):
     merged downstream — PKG's extra merge operator (Fig. 2a)."""
 
     name = "partial_wordcount"
+    needs_values = False
     columnar_needs_values = False
     device_mode = "add"
     device_unit_cost = True
@@ -301,6 +526,46 @@ class PartialWordCount(Operator):
         self.bytes_per_entry = bytes_per_entry
         self.columnar_spec = ColumnarSpec(mode="add",
                                           slot_bytes=bytes_per_entry)
+
+    def process(self, store, interval, key, value):
+        ks = store.state(key)
+        sl = ks.slice_for(interval, init=lambda: {"count": 0},
+                          size=self.bytes_per_entry)
+        sl.payload["count"] += 1
+        return [(key, sl.payload["count"])], 1.0
+
+    def _apply_slices(self, store, interval, uniq, counts):
+        """One slice update per unique key; returns pre-batch slice counts."""
+        pairs = store.update_many(interval, uniq,
+                                  init=lambda: {"count": 0},
+                                  size=self.bytes_per_entry)
+        c0s = np.empty(len(uniq), dtype=np.int64)
+        for i, (m, (_, sl)) in enumerate(zip(counts.tolist(), pairs)):
+            c0s[i] = sl.payload["count"]
+            sl.payload["count"] = c0s[i] + m
+        return c0s
+
+    def _batch_result(self, uniq, counts, c0s, n):
+        # partial counts reset per interval slice: emits c0+1 .. c0+m where
+        # c0 is the *current slice* count (not the window total).
+        outputs = list(zip(uniq.tolist(), (c0s + counts).tolist()))
+        emit = float(np.dot(counts, c0s) + np.dot(counts, counts + 1) / 2.0)
+        freq = counts.astype(np.float64)
+        return BatchResult(uniq, freq.copy(), freq, float(n), outputs, emit)
+
+    def process_batch(self, store, interval, keys, values):
+        uniq, counts = np.unique(keys, return_counts=True)
+        c0s = self._apply_slices(store, interval, uniq, counts)
+        return self._batch_result(uniq, counts, c0s, len(keys))
+
+    def process_batch_emits(self, store, interval, keys, values):
+        uniq, inv, counts = np.unique(keys, return_inverse=True,
+                                      return_counts=True)
+        c0s = self._apply_slices(store, interval, uniq, counts)
+        res = self._batch_result(uniq, counts, c0s, len(keys))
+        evals = c0s[inv] + _occurrence_index(inv, counts) + 1
+        return (res, np.ones(len(keys), dtype=np.int64),
+                keys.astype(np.int64, copy=False), evals)
 
     def process_interval_batch(self, stores, interval, keys, dests, n_tasks,
                                values, collect_emits):
@@ -333,6 +598,35 @@ class MergeCounts(Operator):
         self.bytes_per_entry = 16.0
         self.columnar_spec = ColumnarSpec(mode="max",
                                           slot_bytes=self.bytes_per_entry)
+
+    def process(self, store, interval, key, value):
+        ks = store.state(key)
+        sl = ks.slice_for(interval, init=lambda: {"count": 0},
+                          size=self.bytes_per_entry)
+        sl.payload["count"] = max(sl.payload["count"], int(value))
+        return [], 0.5
+
+    def process_batch(self, store, interval, keys, values):
+        # running max over partial counts: order-insensitive, so the batch
+        # form is a single max per unique key.
+        uniq, inv, counts = np.unique(keys, return_inverse=True,
+                                      return_counts=True)
+        grouped = _group_values(inv, counts, values)
+        pairs = store.update_many(interval, uniq,
+                                  init=lambda: {"count": 0},
+                                  size=self.bytes_per_entry)
+        for u, (_, sl) in enumerate(pairs):
+            sl.payload["count"] = max(sl.payload["count"],
+                                      max(int(v) for v in grouped[u]))
+        freq = counts.astype(np.float64)
+        return BatchResult(uniq, 0.5 * freq, freq, 0.5 * float(len(keys)),
+                           [], 0.0)
+
+    def process_batch_emits(self, store, interval, keys, values):
+        # terminal operator: absorbs partials, emits nothing downstream
+        res = self.process_batch(store, interval, keys, values)
+        return (res, np.zeros(len(keys), dtype=np.int64),
+                np.zeros(0, dtype=np.int64), np.zeros(0, dtype=np.float64))
 
     def process_interval_batch(self, stores, interval, keys, dests, n_tasks,
                                values, collect_emits):
@@ -381,6 +675,15 @@ class Filter(Operator):
         self.predicate = predicate
         self.cost_per_tuple = cost_per_tuple
 
+    def process(self, store, interval, key, value):
+        keep = bool(np.asarray(self.predicate(
+            np.asarray([key], dtype=np.int64), np.asarray([value])))[0])
+        return ([(key, value)] if keep else []), self.cost_per_tuple
+
+    def process_batch(self, store, interval, keys, values):
+        res, _, _, _ = self.process_batch_emits(store, interval, keys, values)
+        return res
+
     def _select(self, keys, values):
         """Keep mask, kept tuples, last-wins outputs over kept tuples only
         (a dropped tuple never reaches the outputs dict), and the
@@ -405,6 +708,16 @@ class Filter(Operator):
             emit_sum = _numeric_emit_sum(
                 [values[i] for i in np.nonzero(keep)[0]])
         return keep, kept_k, kept_v, outputs, emit_sum
+
+    def process_batch_emits(self, store, interval, keys, values):
+        keep, kept_k, kept_v, outputs, emit_sum = self._select(keys, values)
+        uniq, counts = np.unique(keys, return_counts=True)
+        freq = counts.astype(np.float64)
+        res = BatchResult(uniq, self.cost_per_tuple * freq, freq,
+                          self.cost_per_tuple * float(len(keys)), outputs,
+                          emit_sum)
+        return (res, keep.astype(np.int64),
+                kept_k.astype(np.int64, copy=False), kept_v)
 
     def process_interval_batch(self, stores, interval, keys, dests, n_tasks,
                                values, collect_emits):

@@ -1,25 +1,256 @@
-"""Keyed, windowed columnar state store (paper Sec. II-A).
+"""Keyed, windowed state stores (paper Sec. II-A).
 
-Each key holds one numeric slot per time interval; the store evicts state
+Each key holds one state object per time interval; the store evicts state
 older than ``window`` intervals after the interval closes (the paper's model:
 "the task instance erases the state from T_{i-w} after finishing T_i").
 ``S(k, w)`` — the migration-cost weight — is the summed size over the window.
 
-:class:`ColumnarStateStore` keeps flat arrays: a sorted key column plus a
-ring of ``window + 1`` per-interval value/size columns. ``update_slots`` /
-``end_interval_collect`` / migration are pure numpy, so interval boundaries
-and migrations cost O(columns) vectorized work. Eviction is a column clear;
-migration moves row slices as :class:`ColumnarPack` objects, the contract the
-device backend's task views share. The JAX package's dict-of-objects
-``TaskStateStore`` is not ported yet.
+Two stores implement the same contract:
+
+* :class:`TaskStateStore` — the object store: one :class:`KeyState` per key
+  holding an ``OrderedDict`` of per-interval :class:`WindowSlice` objects.
+  Fully general (payloads are arbitrary Python objects): the store of the
+  per-tuple reference loop (``KeyedStage(vectorized=False)``) and of
+  operators without a ``columnar_spec``.
+* :class:`ColumnarStateStore` — flat arrays for numeric windowed operators:
+  a sorted key column plus a ring of ``window + 1`` per-interval value/size
+  columns. ``update_slots`` / ``end_interval_collect`` / migration are pure
+  numpy, so interval boundaries and migrations cost O(columns) vectorized
+  work. Eviction is a column clear; migration is row slicing.
+
+Both exchange migration *packs* (:class:`ObjectPack` / :class:`ColumnarPack`)
+through ``extract_batch`` / ``install_batch``; a pack splits across
+destinations with ``take`` and snapshots with ``clone`` (the checkpoint
+contract). The device backend's task views share the columnar pack.
 """
 
 from __future__ import annotations
 
+import copy
 import dataclasses
-from typing import Optional, Tuple
+from collections import OrderedDict
+from collections.abc import Mapping
+from typing import Any, Callable, Dict, Iterator, List, Optional, Tuple
 
 import numpy as np
+
+
+@dataclasses.dataclass
+class WindowSlice:
+    interval: int
+    payload: Any
+    size: float        # bytes (or abstract units) — feeds S(k, w)
+
+
+class KeyState:
+    """Ring of per-interval slices for one key."""
+
+    def __init__(self, window: int):
+        self.window = window
+        self.slices: "OrderedDict[int, WindowSlice]" = OrderedDict()
+
+    def slice_for(self, interval: int, init: Callable[[], Any],
+                  size: float = 0.0) -> WindowSlice:
+        sl = self.slices.get(interval)
+        if sl is None:
+            sl = WindowSlice(interval, init(), size)
+            self.slices[interval] = sl
+        return sl
+
+    def evict_before(self, interval: int) -> None:
+        cutoff = interval - self.window + 1
+        slices = self.slices
+        # slices are appended in interval order, so stale ones are a prefix
+        while slices and next(iter(slices)) < cutoff:
+            slices.popitem(last=False)
+
+    def total_size(self) -> float:
+        return float(sum(sl.size for sl in self.slices.values()))
+
+    def iter_window(self) -> Iterator[WindowSlice]:
+        return iter(self.slices.values())
+
+
+class TaskStateStore:
+    """All keyed state held by one task instance."""
+
+    def __init__(self, window: int):
+        self.window = window
+        self.keys: Dict[int, KeyState] = {}
+
+    def state(self, key: int) -> KeyState:
+        ks = self.keys.get(key)
+        if ks is None:
+            ks = KeyState(self.window)
+            self.keys[key] = ks
+        return ks
+
+    def end_interval(self, interval: int) -> None:
+        """Evict expired slices; drop keys whose window fully emptied.
+
+        Keys must not linger once every slice expired: an empty
+        :class:`KeyState` contributes nothing to S(k,w) but would stay in
+        ``self.keys`` forever, growing the step-1 stat universe (and thus
+        planner input) monotonically on long runs.
+        """
+        dead = []
+        for k, ks in self.keys.items():
+            ks.evict_before(interval)
+            if not ks.slices:
+                dead.append(k)
+        for k in dead:
+            del self.keys[k]
+
+    def end_interval_collect(self, interval: int
+                             ) -> Tuple[np.ndarray, np.ndarray]:
+        """Evict expired slices AND return ``(keys, S(k,w))`` in one pass.
+
+        Fuses :meth:`end_interval` with :meth:`sizes_arrays` so the
+        vectorized engine touches each key once per interval boundary instead
+        of twice; produces exactly the values the two separate calls would —
+        including dropping (and not reporting) keys left with no slices.
+        """
+        keys_out = []
+        sizes_out = []
+        dead = []
+        for k, ks in self.keys.items():
+            ks.evict_before(interval)
+            slices = ks.slices
+            if not slices:
+                dead.append(k)
+                continue
+            total = 0.0
+            for sl in slices.values():
+                total += sl.size
+            keys_out.append(k)
+            sizes_out.append(total)
+        for k in dead:
+            del self.keys[k]
+        return (np.asarray(keys_out, dtype=np.int64),
+                np.asarray(sizes_out, dtype=np.float64))
+
+    def sizes(self) -> Dict[int, float]:
+        return {k: ks.total_size() for k, ks in self.keys.items()}
+
+    def sizes_arrays(self) -> Tuple[np.ndarray, np.ndarray]:
+        """All held keys and their windowed sizes ``S(k, w)`` as arrays.
+
+        Feeds the vectorized stats collection (paper Fig. 5 step 1) without
+        building an intermediate dict per interval.
+        """
+        n = len(self.keys)
+        ks = np.fromiter(self.keys.keys(), dtype=np.int64, count=n)
+        sz = np.fromiter(
+            (sum(sl.size for sl in s.slices.values())
+             for s in self.keys.values()),
+            dtype=np.float64, count=n)
+        return ks, sz
+
+    # -- batched hot-path access ----------------------------------------------
+    def update_many(self, interval: int, uniq_keys: np.ndarray,
+                    init: Callable[[], Any],
+                    size: float = 0.0) -> List[Tuple[KeyState, WindowSlice]]:
+        """Fetch-or-create the interval slice for a batch of *unique* keys.
+
+        Returns ``(KeyState, WindowSlice)`` pairs aligned with ``uniq_keys``
+        (operators need the full :class:`KeyState` to scan the window, e.g.
+        for the word-count total or the self-join probe count). This is the
+        batched form of ``store.state(k).slice_for(interval, ...)`` used by
+        :meth:`~repro_torch.streams.operators.Operator.process_batch`: the
+        engine groups a micro-batch by key first, so each unique key pays
+        one dict probe no matter how many tuples hit it.
+        """
+        out: List[Tuple[KeyState, WindowSlice]] = []
+        keys = self.keys
+        window = self.window
+        for k in uniq_keys.tolist():
+            ks = keys.get(k)
+            if ks is None:
+                ks = KeyState(window)
+                keys[k] = ks
+            sl = ks.slices.get(interval)      # slice_for, inlined (hot path)
+            if sl is None:
+                sl = WindowSlice(interval, init(), size)
+                ks.slices[interval] = sl
+            out.append((ks, sl))
+        return out
+
+    # -- migration primitives (paper steps 5-6) --------------------------------
+    def extract(self, keys: List[int]) -> Dict[int, KeyState]:
+        out = {}
+        for k in keys:
+            if k in self.keys:
+                out[k] = self.keys.pop(k)
+        return out
+
+    def extract_many(self, keys: np.ndarray) -> Dict[int, KeyState]:
+        """Array-at-a-time :meth:`extract` (migration step 5).
+
+        Accepts any integer array; keys not present on this task are ignored,
+        matching the scalar method's semantics. ``ndarray.tolist()`` converts
+        to native ints in one C call — no per-element ``int(k)`` round-trip.
+        """
+        return self.extract(np.asarray(keys, dtype=np.int64).ravel().tolist())
+
+    def install(self, states: Dict[int, KeyState]) -> None:
+        for k, ks in states.items():
+            if k in self.keys:
+                raise RuntimeError(f"key {k} already present on target task")
+            self.keys[k] = ks
+
+    def install_many(self, states: Dict[int, KeyState]) -> None:
+        """Alias of :meth:`install` under the batched-API naming (step 6)."""
+        self.install(states)
+
+    # -- pack-based migration (backend-agnostic engine contract) ---------------
+    def extract_batch(self, keys: np.ndarray) -> "ObjectPack":
+        """Remove ``keys`` (missing ones ignored) and return them as a pack.
+
+        The pack supports :meth:`ObjectPack.take` so the engine can split one
+        extraction across destinations without rebuilding per-key dicts.
+        """
+        arr = np.asarray(keys, dtype=np.int64).ravel()
+        found = np.zeros(arr.size, dtype=bool)
+        states: List[KeyState] = []
+        store = self.keys
+        for i, k in enumerate(arr.tolist()):
+            ks = store.pop(k, None)
+            if ks is not None:
+                found[i] = True
+                states.append(ks)
+        return ObjectPack(arr[found], states)
+
+    def install_batch(self, pack: "ObjectPack") -> None:
+        store = self.keys
+        for k, ks in zip(pack.keys.tolist(), pack.states):
+            if k in store:
+                raise RuntimeError(f"key {k} already present on target task")
+            store[k] = ks
+
+
+@dataclasses.dataclass
+class ObjectPack:
+    """In-flight migration payload for the object backend: keys + their
+    :class:`KeyState` objects, aligned."""
+
+    keys: np.ndarray
+    states: List[KeyState]
+
+    @property
+    def nbytes(self) -> float:
+        return float(sum(ks.total_size() for ks in self.states))
+
+    def take(self, mask: np.ndarray) -> "ObjectPack":
+        mask = np.asarray(mask, dtype=bool)
+        return ObjectPack(self.keys[mask],
+                          [s for s, m in zip(self.states, mask.tolist()) if m])
+
+    def clone(self) -> "ObjectPack":
+        """Deep-copied pack (checkpoint contract): the original pack holds
+        live :class:`KeyState` references, so a snapshot that must survive
+        further mutation — or be installed more than once — needs its own
+        state objects."""
+        return ObjectPack(self.keys.copy(), copy.deepcopy(self.states))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -31,15 +262,25 @@ class ColumnarSpec:
     value, ``slot_bytes`` is the size charged when a slot is first created
     (WordCount's fixed per-entry bytes) and ``bytes_per_unit`` the size
     growth per added unit (the self-join's per-stored-tuple bytes).
+    ``payload`` selects how the ``keys`` view materializes slot payloads:
+    ``"count"`` -> ``{"count": n}`` (the word-count family), ``"tuples"`` ->
+    a length-``n`` list (the self-join; the raw tuple payloads are not
+    retained columnarly).
     """
 
     mode: str = "add"            # "add" | "max"
     slot_bytes: float = 0.0      # size charged when a slot is created
     bytes_per_unit: float = 0.0  # extra size per added unit
+    payload: str = "count"       # keys-view materialization
 
 
-class _ColumnarKeysView:
-    """Read-only ``store.keys`` surface: length, iteration, membership."""
+class _ColumnarKeysView(Mapping):
+    """Read-only dict-like view over a columnar store's keys.
+
+    Materializes :class:`KeyState` snapshots on demand, so store
+    introspection works alike across stores. Mutating a snapshot does NOT
+    write back to the columns.
+    """
 
     def __init__(self, store: "ColumnarStateStore"):
         self._store = store
@@ -52,6 +293,12 @@ class _ColumnarKeysView:
 
     def __contains__(self, key) -> bool:
         return self._store._row_of(key) is not None
+
+    def __getitem__(self, key) -> KeyState:
+        row = self._store._row_of(key)
+        if row is None:
+            raise KeyError(key)
+        return self._store._key_state_snapshot(row)
 
 
 class ColumnarStateStore:
@@ -114,6 +361,25 @@ class ColumnarStateStore:
         if pos < keys.size and int(keys[pos]) == key:
             return pos
         return None
+
+    def _key_state_snapshot(self, row: int) -> KeyState:
+        ks = KeyState(self.window)
+        live = np.nonzero(self._present[row])[0]
+        for j in live[np.argsort(self._col_iv[live])]:
+            iv = int(self._col_iv[j])
+            n = int(self._vals[row, j])
+            if self.spec.payload == "tuples":
+                payload: Any = [None] * n
+            else:
+                payload = {"count": n}
+            ks.slices[iv] = WindowSlice(iv, payload, float(self._sizes[row, j]))
+        return ks
+
+    def state(self, key: int) -> KeyState:
+        raise NotImplementedError(
+            "ColumnarStateStore has no mutable per-key objects; scalar "
+            "operator access needs the object backend "
+            "(KeyedStage(state_backend='object'))")
 
     # -- batched hot-path access ----------------------------------------------
     def update_slots(self, interval: int, keys: np.ndarray, add: np.ndarray
@@ -216,6 +482,13 @@ class ColumnarStateStore:
     # -- stats ------------------------------------------------------------------
     def sizes_arrays(self) -> Tuple[np.ndarray, np.ndarray]:
         return self._keys, self._sizes.sum(axis=1)
+
+    def sizes(self) -> Dict[int, float]:
+        keys, sz = self.sizes_arrays()
+        return dict(zip(keys.tolist(), sz.tolist()))
+
+    def total_state_keys(self) -> int:
+        return int(self._keys.size)
 
     # -- pack-based migration (paper steps 5-6) --------------------------------
     def extract_batch(self, keys: np.ndarray) -> "ColumnarPack":

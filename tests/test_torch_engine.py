@@ -278,7 +278,9 @@ def test_stage_validation():
     with pytest.raises(ValueError, match="substrate"):
         KeyedStage(WordCount(), c, substrate="pallas", device="cpu")
     with pytest.raises(ValueError, match="unknown state backend"):
-        KeyedStage(WordCount(), c, state_backend="object", device="cpu")
+        KeyedStage(WordCount(), c, state_backend="sharded", device="cpu")
+    assert KeyedStage(WordCount(), c, state_backend="object",
+                      device="cpu").state_backend == "object"
     # auto picks the device ring only on CUDA
     assert KeyedStage(WordCount(), c, device="cpu").state_backend == \
         "columnar"

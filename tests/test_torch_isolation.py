@@ -1,8 +1,10 @@
 """The port stands alone: no module of ``src/repro_torch/`` and not
 ``chip_smoke.py`` imports JAX or the JAX package, the package imports and
-runs with both blocked (the stream stage, a smoke serve step, an MoE smoke
-serve path and the serving engine), and its entry points refuse to run
-without a CUDA device unless the caller asks for the CPU."""
+runs with both blocked (the stream stage, a ``ChaosRunner`` interval with
+a kill and an ``AutoscaleLoop`` step on the device ring, a smoke serve
+step, an MoE smoke serve path and the serving engine), and its entry
+points refuse to run without a CUDA device unless the caller asks for the
+CPU."""
 
 import ast
 import os
@@ -66,6 +68,18 @@ else:
 s = stage(device="cpu")
 r = s.process_interval_arrays(np.arange(200, dtype=np.int64) % 37)
 assert r.tuples == 200 and s.total_state_keys() == 37
+
+import repro_torch.core.autoscale
+import repro_torch.streams.faults
+from repro_torch.core import AutoscaleConfig, AutoscaleLoop
+from repro_torch.streams import ChaosRunner, FaultPlan, KillTask
+runner = ChaosRunner(stage(device="cpu"),
+                     FaultPlan([KillTask(interval=1, site="mid")]))
+r = runner.process_interval(np.arange(200, dtype=np.int64) % 37)
+assert r.tuples == 200 and runner.stage.total_state_keys() == 37
+assert [(e.interval, e.kind) for e in runner.events] == [(1, "kill@mid")]
+loop = AutoscaleLoop(stage(device="cpu"), AutoscaleConfig(target_load=50.0))
+assert loop.step(np.arange(200, dtype=np.int64) % 37).tuples == 200
 
 import torch
 import repro_torch.models

@@ -294,11 +294,13 @@ def test_device_backend_refuses_routers(name):
     # classmethod needs no card); a table planner on the same operator does
     cuda = torch.device("cuda")
     assert not DeviceBackend.auto_eligible(PartialWordCount(), port_ctrl,
-                                           cuda)
+                                           True, cuda)
     mixed = RebalanceController(Assignment(Hash32(4, seed=1)),
                                 BalanceConfig())
-    assert DeviceBackend.auto_eligible(PartialWordCount(), mixed, cuda)
-    assert not DeviceBackend.auto_eligible(PartialWordCount(), mixed,
+    assert DeviceBackend.auto_eligible(PartialWordCount(), mixed, True, cuda)
+    assert not DeviceBackend.auto_eligible(PartialWordCount(), mixed, False,
+                                           cuda)
+    assert not DeviceBackend.auto_eligible(PartialWordCount(), mixed, True,
                                            torch.device("cpu"))
     stage = KeyedStage(PartialWordCount(), port_ctrl, device="cpu")
     assert stage.state_backend == "columnar"
