@@ -93,6 +93,22 @@ It prints one JSON line per phase, each with its wall seconds:
   prefill through the KV cache and 16 timed greedy decode steps under the
   new placements, neither launching the flash kernel. Also one MoE layer's
   time split into its expert products and the rest.
+* ``train`` — the training slice (``TrainPhaseConfig``): granite-moe-3b-
+  a800m at full width and depth, random bf16 weights and AdamW state on
+  the card, ``Trainer`` for 6 steps of 8 x 512 tokens from the keyed data
+  pipeline, 2 microbatches, SkewShield every 2 steps. Every loss and grad
+  norm must be finite; at each rebalance every placer must be handed the
+  step's loads by logical expert, and where experts moved, the loss of a
+  fixed batch must be bit-identical before and after the move (weights,
+  moments and placements moved together). Read: step ms, tokens/s,
+  ``opt_update`` and loss-and-backward ms, each rebalance's ms, moves and
+  theta, peak memory beside ``memory_arithmetic``. Then the resume leg at
+  full width cut to 2 layers (4 steps straight against 2, ``save``, a
+  fresh trainer's ``try_resume`` and 2 more: placements, routing tables,
+  losses and every tensor bit-identical; checkpoint bytes, save and
+  restore ms) and one float32 step of that model on the card and on the
+  CPU (``CARD_CPU_TOL``; the routed entries that differ are counted, and
+  the loss is held only where none do). No kernel may launch.
 
 Then one ``{"kernels": [...]}`` line (per kernel and call site: launches on
 its path, max error, kernel/plain/library times and the bound), the card's
@@ -194,6 +210,38 @@ class MoeServeConfig:
     reps: int = 5
     atol: float = 0.3
     rtol: float = 0.05
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainPhaseConfig:
+    """The training deployment: granite-moe-3b-a800m at full width and
+    depth, 8 sequences of 512 tokens a step from the keyed data pipeline
+    (32 Zipf sources, z = 1, one worker: the training launcher's local
+    mode), 2 microbatches, a SkewShield rebalance every 2 steps (theta_max
+    0.02, low enough that the measured loads move experts), 6 steps.
+    Then a resume leg at full width cut to 2 layers (4 steps straight
+    against 2, a save, a fresh trainer's resume and 2 more), and one
+    float32 train step of the same 2-layer model on the card and on the
+    CPU."""
+
+    arch: str = "granite-moe-3b-a800m"
+    batch: int = 8
+    seq: int = 512
+    microbatches: int = 2
+    steps: int = 6
+    rebalance_every: int = 2
+    theta_max: float = 0.02
+    seed: int = 0
+    lr: float = 1e-3
+    warmup_steps: int = 2
+    sources: int = 32
+    docs_per_interval: int = 32
+    #: the resume leg: its depth and its steps (the save after half)
+    resume_layers: int = 2
+    resume_steps: int = 4
+    #: the card-against-CPU step (float32, ``resume_layers`` layers)
+    cpu_batch: int = 2
+    cpu_seq: int = 128
 
 
 def emit(obj) -> None:
@@ -2111,6 +2159,373 @@ def phase_serve_moe(torch, cfg, mcfg: MoeServeConfig, device, sync) -> dict:
     return out
 
 
+# -- phase 7: training ----------------------------------------------------------
+
+def train_memory(cfg, microbatches: int) -> dict:
+    """The train step's state in bytes, from the schema: the parameters in
+    their dtypes, AdamW's float32 m, v and master, the float32 gradient
+    accumulator (with more than one microbatch) and one microbatch's
+    gradients in the parameters' dtypes, which arrive a superblock slice at
+    a time and are added into the accumulator (one microbatch stacks them
+    instead: the same bytes once more)."""
+    import torch
+    from repro_torch.models.schema import tree_leaves
+    from repro_torch.models.transformer import model_schema
+    specs = tree_leaves(model_schema(cfg))
+    n = sum(int(np.prod(s.shape)) for s in specs)
+    params = sum(int(np.prod(s.shape))
+                 * torch.empty((), dtype=s.dtype).element_size()
+                 for s in specs)
+    out = {"params": n, "param_bytes": params, "adamw_bytes": 3 * 4 * n,
+           "accumulator_bytes": 4 * n if microbatches > 1 else 0,
+           "microbatch_grad_bytes": params if microbatches > 1
+           else 2 * params}
+    out["state_bytes"] = sum(v for k, v in out.items() if k != "params")
+    return out
+
+
+def _draw_batches(torch, tcfg: TrainPhaseConfig, vocab: int):
+    """``data_fn`` of the training launcher's local mode at ``tcfg``'s
+    sizes: each call runs pipeline intervals until worker 0 packs a
+    batch."""
+    from repro_torch.data import KeyedDataPipeline, zipf_sources
+    pipe = KeyedDataPipeline(zipf_sources(tcfg.sources, z=1.0),
+                             n_workers=1, seq_len=tcfg.seq, vocab=vocab)
+
+    def data_fn(step):
+        while True:
+            pipe.run_interval(n_docs=tcfg.docs_per_interval)
+            b = pipe.worker_batch(0, tcfg.batch)
+            if b is not None:
+                return {k: torch.from_numpy(v) for k, v in b.items()}
+
+    return data_fn
+
+
+def _moved(trainer) -> bool:
+    return any((p.placement != np.arange(p.e)).any()
+               for p in trainer.placers)
+
+
+def phase_train(torch, cfg, tcfg: TrainPhaseConfig, device, sync) -> dict:
+    """The training path of the MoE model ``cfg`` on ``device`` at
+    ``tcfg``'s sizes (a smoke config and small sizes on the CPU rehearse
+    it): the full-depth leg, the resume leg and the card-against-CPU step
+    (see :class:`TrainPhaseConfig`), in a temporary directory removed
+    afterwards."""
+    import gc
+    import shutil
+    import tempfile
+    from repro_torch.models import schema
+    from repro_torch.models.transformer import model_schema
+    dev = torch.device(device)
+    out = {"arch": cfg.name, "n_layers": cfg.n_layers,
+           "d_model": cfg.d_model, "experts": cfg.moe_experts,
+           "top_k": cfg.moe_topk, "vocab": cfg.vocab,
+           "params": schema.count_params(model_schema(cfg)),
+           "batch": tcfg.batch, "seq": tcfg.seq,
+           "tokens_per_step": tcfg.batch * tcfg.seq,
+           "microbatches": tcfg.microbatches, "steps": tcfg.steps,
+           "memory_arithmetic": train_memory(cfg, tcfg.microbatches),
+           "reduced": [f"resume leg: n_layers {cfg.n_layers} -> "
+                       f"{tcfg.resume_layers}",
+                       f"card-against-CPU step: n_layers {cfg.n_layers} -> "
+                       f"{tcfg.resume_layers}, batch {tcfg.cpu_batch} x "
+                       f"{tcfg.cpu_seq} tokens, float32"]}
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_train_"))
+
+    def release():
+        gc.collect()
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+
+    try:
+        out["full_depth"] = _train_full_depth(torch, cfg, tcfg, dev, sync,
+                                              tmp / "full")
+        release()
+        out["resume"] = _train_resume(torch, cfg, tcfg, dev, sync, tmp)
+        release()
+        out["card_vs_cpu"] = _train_card_vs_cpu(torch, cfg, tcfg, dev, sync)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return out
+
+
+def _train_full_depth(torch, cfg, tcfg: TrainPhaseConfig, dev, sync,
+                      ckpt_dir) -> dict:
+    """``Trainer`` at ``cfg``'s full depth: every step's loss and grad norm
+    finite; ``opt_update`` timed between synchronisations (the rest of a
+    step is the loss and its backward); at each rebalance, the loads handed
+    to every placer must be the step's physical loads mapped to logical
+    experts (C10), and where experts moved, the loss of one fixed batch
+    under the old weights and placements must equal, bit for bit, the loss
+    under the moved weights and new placements."""
+    from repro_torch.models import lm_loss
+    from repro_torch.train import OptConfig, Trainer, TrainerConfig
+    from repro_torch.train import train_step as train_step_mod
+
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    tr = Trainer(cfg, OptConfig(lr=tcfg.lr, warmup_steps=tcfg.warmup_steps,
+                                total_steps=tcfg.steps),
+                 TrainerConfig(total_steps=tcfg.steps,
+                               checkpoint_every=tcfg.steps + 1,
+                               rebalance_every=tcfg.rebalance_every,
+                               microbatches=tcfg.microbatches,
+                               skewshield=True, theta_max=tcfg.theta_max),
+                 str(ckpt_dir), _draw_batches(torch, tcfg, cfg.vocab),
+                 seed=tcfg.seed, device=dev)
+    sync()
+    init_s = time.perf_counter() - t0
+    init_bytes = (torch.cuda.memory_allocated() if dev.type == "cuda"
+                  else None)
+    gen = torch.Generator(device=dev).manual_seed(tcfg.seed + 1)
+    toks = torch.randint(0, cfg.vocab, (tcfg.batch, tcfg.seq + 1),
+                         generator=gen, device=dev)
+    fixed = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+
+    def fixed_loss():
+        with torch.no_grad():
+            return lm_loss(tr.params, cfg, fixed,
+                           placements=tr.placements())
+
+    opt_ms, rebalances = [], []
+    run_opt = train_step_mod.opt_update
+    run_rebalance = tr._rebalance_experts
+
+    def timed_opt(*args):
+        res, secs = timed(sync, lambda: run_opt(*args))
+        opt_ms.append(secs * 1e3)
+        return res
+
+    def rebalance(expert_load):
+        old = [p.placement.copy() for p in tr.placers]
+        seen, updates = [], []
+
+        def spy(update):
+            def call(loads):
+                seen.append(np.asarray(loads).copy())
+                updates.append(update(loads))
+                return updates[-1]
+            return call
+
+        for placer in tr.placers:
+            placer.update = spy(placer.update)
+        before = fixed_loss()
+        try:
+            _, secs = timed(sync, lambda: run_rebalance(expert_load))
+        finally:
+            for placer in tr.placers:
+                del placer.update
+        for layer, (placer, was) in enumerate(zip(tr.placers, old)):
+            if not np.array_equal(seen[layer], expert_load[layer, 0][was]):
+                raise AssertionError(f"layer {layer}'s placer was not handed "
+                                     "the loads by logical expert")
+        moved = [int((p.shard_of_slot(p.placement)
+                      != p.shard_of_slot(w)).sum())
+                 for p, w in zip(tr.placers, old)]
+        rec = {"step": tr.step, "ms": secs * 1e3,
+               "layers_moved": sum(m > 0 for m in moved),
+               "moved_experts_per_layer": moved,
+               "slots_rewritten": int(sum((p.placement != w).sum()
+                                          for p, w in zip(tr.placers, old))),
+               "theta_before_max": max(u.theta_before for u in updates),
+               "theta_after_max": max(u.theta_after for u in updates),
+               "plan_ms_sum": sum(u.plan_time_s for u in updates) * 1e3,
+               "migration_bytes": sum(u.migration_bytes for u in updates),
+               "loads_logical": True}
+        if any(moved):
+            after = fixed_loss()
+            rec["fixed_batch_loss_before"] = float(before)
+            rec["fixed_batch_loss_after"] = float(after)
+            if not torch.equal(before, after):
+                raise AssertionError(f"moving experts changed the loss: "
+                                     f"{float(before)} -> {float(after)}")
+            rec["loss_bit_identical"] = True
+        rebalances.append(rec)
+
+    tr._rebalance_experts = rebalance
+    train_step_mod.opt_update = timed_opt
+    try:
+        hist = tr.run()
+    finally:
+        train_step_mod.opt_update = run_opt
+        del tr._rebalance_experts
+    losses = [h["loss"] for h in hist]
+    norms = [h["grad_norm"] for h in hist]
+    if not (np.isfinite(losses).all() and np.isfinite(norms).all()):
+        raise AssertionError(f"non-finite loss or grad norm: {losses}, "
+                             f"{norms}")
+    if not rebalances:
+        raise AssertionError("no SkewShield rebalance was evaluated")
+    step_ms = [h["time_s"] * 1e3 for h in hist]
+    steady = step_ms[1:] if len(step_ms) > 1 else step_ms
+    out = {"init_s": init_s, "losses": losses, "grad_norms": norms,
+           "step_ms": step_ms, "step_ms_median_2_on": statistics.median(
+               steady),
+           "tokens_per_s": tcfg.batch * tcfg.seq
+           / (statistics.median(steady) / 1e3),
+           "opt_update_ms": opt_ms,
+           "loss_backward_ms": [s - o for s, o in zip(step_ms, opt_ms)],
+           "rebalances": rebalances,
+           "stragglers_flagged": sum(bool(h.get("straggler_suspect"))
+                                     for h in hist)}
+    if dev.type == "cuda":
+        out["device_memory_after_init_bytes"] = init_bytes
+        out["device_memory_peak_bytes"] = torch.cuda.max_memory_allocated()
+    return out
+
+
+def _tree_gap(torch, a, b) -> float:
+    from repro_torch.models.schema import tree_leaves
+    return max(float((x.float() - y.float()).abs().max())
+               for x, y in zip(tree_leaves(a), tree_leaves(b)))
+
+
+def _train_resume(torch, cfg, tcfg: TrainPhaseConfig, dev, sync,
+                  tmp) -> dict:
+    """``resume_steps`` steps straight against half of them, ``save``, a
+    fresh ``Trainer``'s ``try_resume`` on the same directory and the other
+    half, at full width with ``resume_layers`` layers and an expert move
+    before the save: the placements and routing tables must agree exactly
+    (C12). Whether the losses, weights and optimizer state agree bit for
+    bit is recorded (``bit_identical``, with the largest gaps) and checked
+    by ``main`` after the phase's line is out."""
+    from repro_torch.train import OptConfig, Trainer, TrainerConfig
+    rcfg = dataclasses.replace(cfg, n_layers=tcfg.resume_layers)
+    draw = _draw_batches(torch, tcfg, cfg.vocab)
+    batches = [draw(s) for s in range(tcfg.resume_steps)]
+    half = tcfg.resume_steps // 2
+    ocfg = OptConfig(lr=tcfg.lr, warmup_steps=tcfg.warmup_steps,
+                     total_steps=tcfg.resume_steps)
+    tc = TrainerConfig(total_steps=tcfg.resume_steps,
+                       checkpoint_every=tcfg.resume_steps + 1,
+                       rebalance_every=1, microbatches=tcfg.microbatches,
+                       skewshield=True, theta_max=tcfg.theta_max)
+
+    def trainer(name):
+        return Trainer(rcfg, ocfg, tc, str(tmp / name),
+                       lambda s: batches[s], seed=tcfg.seed, device=dev)
+
+    straight = trainer("straight")
+    hist = straight.run()
+    first = trainer("resumed")
+    first.run(half)
+    if not _moved(first):
+        raise AssertionError("no expert moved before the save")
+    _, save_s = timed(sync, first.save)
+    ckpt_bytes = sum(f.stat().st_size
+                     for f in (tmp / "resumed").rglob("*") if f.is_file())
+    saved = [p.placement.copy() for p in first.placers]
+    del first
+    resumed = trainer("resumed")
+    ok, restore_s = timed(sync, resumed.try_resume)
+    if not ok or resumed.step != half:
+        raise AssertionError(f"try_resume failed (step {resumed.step})")
+    for placer, want in zip(resumed.placers, saved):
+        if not np.array_equal(placer.placement, want):
+            raise AssertionError("try_resume did not restore a placement")
+    rest = resumed.run(tcfg.resume_steps - half)
+    for a, b in zip(resumed.placers, straight.placers):
+        if not (np.array_equal(a.placement, b.placement)
+                and a.controller.assignment.table
+                == b.controller.assignment.table):
+            raise AssertionError("the resumed run's placements differ from "
+                                 "the straight run's")
+    gaps = {"params": _tree_gap(torch, resumed.params, straight.params),
+            **{k: _tree_gap(torch, resumed.opt_state[k],
+                            straight.opt_state[k])
+               for k in ("m", "v", "master")}}
+    loss_gaps = [abs(a["loss"] - b["loss"])
+                 for a, b in zip(rest, hist[half:])]
+    return {"n_layers": rcfg.n_layers,
+            "params": sum(int(np.prod(p.shape)) for p in
+                          _leaves(straight.params)),
+            "straight_losses": [h["loss"] for h in hist],
+            "resumed_losses": [h["loss"] for h in rest],
+            "layers_moved_before_save": sum(
+                bool((w != np.arange(len(w))).any()) for w in saved),
+            "placements_equal": True,
+            "bit_identical": not any(gaps.values()) and not any(loss_gaps),
+            "max_abs_gaps": gaps, "loss_gaps": loss_gaps,
+            "checkpoint_bytes": ckpt_bytes,
+            "save_ms": save_s * 1e3, "restore_ms": restore_s * 1e3}
+
+
+def _leaves(tree):
+    from repro_torch.models.schema import tree_leaves
+    return tree_leaves(tree)
+
+
+#: the card-against-CPU step's tolerances (float32, TF32 off): the loss
+#: (held only where no routed entry differs) and the grad norm relative;
+#: the updated master absolute, in units of lr: Adam's first step moves a
+#: weight by lr g / (|g| + eps), so an element whose gradient is within
+#: rounding of 0 may step the other way (up to 2 lr)
+CARD_CPU_TOL = {"loss_rtol": 1e-4, "grad_norm_rtol": 1e-3,
+                "master_atol_lr": 2.5}
+
+
+def _train_card_vs_cpu(torch, cfg, tcfg: TrainPhaseConfig, dev,
+                       sync) -> dict:
+    """One float32 train step (``microbatches`` 2, ``cpu_batch`` x
+    ``cpu_seq`` tokens) of the ``resume_layers``-layer model at full width
+    on ``dev`` and on the CPU, both through the port's own code, from the
+    same weights and batch: whether the loss, grad norm and updated master
+    are within ``CARD_CPU_TOL`` is recorded (``within_tolerance``, checked
+    by ``main``); the routed entries that differ are counted."""
+    from repro_torch.models import schema
+    from repro_torch.models.schema import tree_map
+    from repro_torch.models.transformer import model_schema
+    from repro_torch.train import OptConfig, make_train_step, opt_init
+    ccfg = dataclasses.replace(cfg, n_layers=tcfg.resume_layers)
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError("TF32 matmuls are on")
+    gen = torch.Generator().manual_seed(tcfg.seed + 2)
+    weights = tree_map(lambda a: a.float(),
+                       schema.init(model_schema(ccfg), gen, "cpu"))
+    toks = torch.randint(0, cfg.vocab, (tcfg.cpu_batch, tcfg.cpu_seq + 1),
+                         generator=gen)
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    ocfg = OptConfig(lr=tcfg.lr, warmup_steps=tcfg.warmup_steps,
+                     total_steps=tcfg.steps)
+    step = make_train_step(ccfg, ocfg, microbatches=2, collect_moe=True)
+    runs = {}
+    for name, d in (("card", dev), ("cpu", torch.device("cpu"))):
+        p = tree_map(lambda a: a.to(d, copy=True), weights)
+        b = {k: v.to(d) for k, v in batch.items()}
+        (p, st, m), secs = timed(sync, lambda: step(p, opt_init(p), b))
+        runs[name] = (tree_map(lambda a: a.cpu(), st["master"]),
+                      {k: v.cpu() for k, v in m.items()}, secs)
+    (master_a, ma, secs_a), (master_b, mb, secs_b) = runs["card"], \
+        runs["cpu"]
+    moved = ((ma["expert_load"] - mb["expert_load"]).abs().sum(-1) / 2)
+    moved = moved.reshape(-1).tolist()
+    gap = _tree_gap(torch, master_a, master_b)
+    over = sum(int(((x - y).abs() > ocfg.lr * 1e-2).sum())
+               for x, y in zip(_leaves(master_a), _leaves(master_b)))
+    n = sum(x.numel() for x in _leaves(master_a))
+    loss_a, loss_b = float(ma["loss"]), float(mb["loss"])
+    norm_a, norm_b = float(ma["grad_norm"]), float(mb["grad_norm"])
+    out = {"n_layers": ccfg.n_layers, "batch": tcfg.cpu_batch,
+           "seq": tcfg.cpu_seq, "dtype": "float32", "tf32": False,
+           "tolerance": CARD_CPU_TOL, "loss": [loss_a, loss_b],
+           "grad_norm": [norm_a, norm_b],
+           "routed_entries_differing_per_layer": moved,
+           "loss_held": not any(moved),
+           "master_max_abs_gap": gap,
+           "master_elements_over_lr_over_100": over,
+           "master_elements": n, "card_s": secs_a, "cpu_s": secs_b}
+    out["within_tolerance"] = {
+        "loss": bool(any(moved) or abs(loss_a - loss_b)
+                     <= CARD_CPU_TOL["loss_rtol"] * abs(loss_b)),
+        "grad_norm": abs(norm_a - norm_b)
+        <= CARD_CPU_TOL["grad_norm_rtol"] * abs(norm_b),
+        "master": gap <= CARD_CPU_TOL["master_atol_lr"] * ocfg.lr}
+    return out
+
+
 def main() -> int:
     try:
         import torch
@@ -2125,7 +2540,8 @@ def main() -> int:
               "(src/repro_torch is missing)", file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT / "src"))
-    from repro_torch.kernels import RoutingTable, key_stats, route_keys
+    from repro_torch.kernels import (RoutingTable, flash_attention,
+                                     key_stats, route_keys)
 
     cfg = Config()
     scfg = ServeConfig()
@@ -2272,6 +2688,28 @@ def main() -> int:
                              f"{moe_launches}")
     emit({"phase": "serve_moe", **serve_moe, "card": nvidia_smi_line(),
           "seconds": time.perf_counter() - t0})
+
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    tcfg = TrainPhaseConfig()
+    flash_attention.launches = 0
+    route_keys.launches = 0
+    key_stats.launches = 0
+    train = phase_train(torch, get_config(tcfg.arch), tcfg, "cuda", sync)
+    train_launches = {"flash_attention": flash_attention.launches,
+                      "route_keys": route_keys.launches,
+                      "key_stats": key_stats.launches}
+    emit({"phase": "train", **train, "launches": train_launches,
+          "card": nvidia_smi_line(), "seconds": time.perf_counter() - t0})
+    if any(train_launches.values()):
+        raise AssertionError(f"the train path launched a kernel: "
+                             f"{train_launches}")
+    if not train["resume"]["bit_identical"]:
+        raise AssertionError(f"the resumed run differs from the straight "
+                             f"run: {train['resume']['max_abs_gaps']}")
+    if not all(train["card_vs_cpu"]["within_tolerance"].values()):
+        raise AssertionError(f"the card's train step is off the CPU's: "
+                             f"{train['card_vs_cpu']}")
 
     launches = {"routing_lookup[dense]": main_launches["route_keys"],
                 "routing_lookup[dense,sketch]": sketch_launches,

@@ -11,12 +11,13 @@ PyTorch version. Around it: the competing choice routers (PKG, the Power of
 Both Choices, W-Choices) on the host, multi-stage topologies (a router's
 split stage feeding a merge stage) and checkpointed recovery.
 
-The serving slice of the model substrate sits beside it: attention LMs
-with dense or MoE MLPs (:mod:`.models`, :mod:`.configs`), SkewShield expert
-placement (:mod:`.models.skewshield`), the serve step (:mod:`.train`), the
-local serving launcher (:mod:`.launch.serve`) and the session-routing
-serving engine (:mod:`.serve`), with the flash-attention TPU kernel
-rewritten as CUDA C++ too.
+The model substrate sits beside it: attention LMs with dense or MoE MLPs
+(:mod:`.models`, :mod:`.configs`), SkewShield expert placement
+(:mod:`.models.skewshield`), the serve and train steps, AdamW, checkpoints
+and the trainer (:mod:`.train`), the keyed data pipeline (:mod:`.data`),
+the local serving and training launchers (:mod:`.launch`) and the
+session-routing serving engine (:mod:`.serve`), with the flash-attention
+TPU kernel rewritten as CUDA C++ too.
 
 This package imports torch, numpy and the standard library only; it keeps
 its own copy of the host control plane and of the model code.
@@ -25,13 +26,16 @@ its own copy of the host control plane and of the model code.
 from .core import (Assignment, BalanceConfig, ConsistentHash, Hash32,
                    KeyStats, ModHash, RebalanceController, resolve_strategy,
                    strategy_names)
+from .data import KeyedDataPipeline, zipf_sources
 from .streams import (Filter, KeyedStage, MergeCounts, PartialWordCount,
                       StageSpec, Topology, WindowedSelfJoin, WordCount,
                       WorkloadGen, keyed_stage, router_merge_topology)
+from .train import OptConfig, Trainer, TrainerConfig
 
 __all__ = ["Assignment", "BalanceConfig", "ConsistentHash", "Hash32",
            "KeyStats", "ModHash", "RebalanceController", "resolve_strategy",
            "strategy_names", "Filter", "KeyedStage", "MergeCounts",
            "PartialWordCount", "StageSpec", "Topology", "WindowedSelfJoin",
            "WordCount", "WorkloadGen", "keyed_stage",
-           "router_merge_topology"]
+           "router_merge_topology", "KeyedDataPipeline", "zipf_sources",
+           "OptConfig", "Trainer", "TrainerConfig"]

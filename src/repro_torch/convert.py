@@ -48,6 +48,9 @@ later tuple as it would have there.
 :func:`load_reference_params` carries a model's weights across: a nested
 dict of numpy arrays (``np.asarray`` of each leaf of a JAX parameter
 pytree) becomes the same tree of torch tensors.
+:func:`load_reference_opt_state` does the same for the JAX package's AdamW
+state (``opt_init`` / ``opt_update``), so a run can continue in the port
+where it stopped there.
 """
 
 from __future__ import annotations
@@ -198,3 +201,20 @@ def load_reference_params(tree, device=None):
         return _tensor(node, dev)
 
     return convert(tree)
+
+
+def load_reference_opt_state(tree, device=None) -> dict:
+    """The JAX package's optimizer state — ``{"m", "v", "master"}`` trees
+    and the ``"step"`` counter, each leaf taken with ``np.asarray`` — as the
+    port's ``train.optimizer`` state on ``device`` (None = the CUDA card):
+    the same trees of float32 tensors, bit for bit, and ``step`` as a 0-d
+    int32 tensor."""
+    if set(tree) != {"m", "v", "master", "step"}:
+        raise ValueError(f"an optimizer state has m, v, master and step; "
+                         f"got {sorted(tree)}")
+    state = load_reference_params(
+        {k: tree[k] for k in ("m", "v", "master")}, device)
+    state["step"] = torch.tensor(int(np.asarray(tree["step"])),
+                                 dtype=torch.int32,
+                                 device=resolve_device(device))
+    return state

@@ -1,0 +1,66 @@
+"""Training launcher — the local mode of the JAX package's
+``launch/train.py``: real steps on one device at the arch's smoke size,
+through the whole stack (keyed data pipeline -> microbatched AdamW ->
+checkpoints -> SkewShield for MoE archs).
+
+  PYTHONPATH=src python -m repro_torch.launch.train \\
+      --arch granite-moe-3b-a800m --device cpu --steps 3
+  PYTHONPATH=src python -m repro_torch.launch.train --arch granite-8b
+
+``--device`` defaults to the CUDA card. A run resumes from the newest
+checkpoint in ``--ckpt`` when there is one. Not ported: the JAX launcher's
+``--mode lower`` (XLA lowering for a TPU mesh, ROADMAP A9) and its
+``REPRO_PERF_*`` flags, which steer XLA.
+"""
+
+from __future__ import annotations
+
+import argparse
+
+import torch
+
+from ..configs import smoke_config
+from ..data.pipeline import KeyedDataPipeline, zipf_sources
+from ..train.optimizer import OptConfig
+from ..train.trainer import Trainer, TrainerConfig
+
+
+def main(argv=None) -> None:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--arch", required=True)
+    ap.add_argument("--steps", type=int, default=20)
+    ap.add_argument("--batch", type=int, default=4)
+    ap.add_argument("--seq", type=int, default=128)
+    ap.add_argument("--microbatches", type=int, default=1)
+    ap.add_argument("--ckpt", default="/tmp/repro_torch_ckpt")
+    ap.add_argument("--device", default=None,
+                    help="torch device (default: the CUDA card)")
+    args = ap.parse_args(argv)
+    arch = args.arch.replace("-", "_")
+
+    cfg = smoke_config(arch)
+    pipe = KeyedDataPipeline(zipf_sources(32, z=1.0), n_workers=1,
+                             seq_len=args.seq, vocab=cfg.vocab)
+
+    def data_fn(step):
+        while True:
+            pipe.run_interval(n_docs=32)
+            b = pipe.worker_batch(0, args.batch)
+            if b is not None:
+                return {k: torch.from_numpy(v) for k, v in b.items()}
+
+    tcfg = TrainerConfig(total_steps=args.steps, checkpoint_every=10,
+                         microbatches=args.microbatches,
+                         skewshield=cfg.moe_experts > 0)
+    tr = Trainer(cfg, OptConfig(lr=1e-3, warmup_steps=5,
+                                total_steps=args.steps),
+                 tcfg, args.ckpt, data_fn, device=args.device)
+    if tr.try_resume():
+        print(f"resumed at step {tr.step}")
+    hist = tr.run()
+    print(f"{arch}: step {tr.step} loss "
+          f"{hist[0]['loss']:.3f} -> {hist[-1]['loss']:.3f}")
+
+
+if __name__ == "__main__":
+    main()

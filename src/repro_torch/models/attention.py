@@ -20,7 +20,7 @@ import torch
 
 from ..kernels import attention as flash_attention
 from .config import ModelConfig
-from .layers import rope
+from .layers import dot, rope
 from .schema import ParamSpec
 
 NEG_INF = -1e30
@@ -118,9 +118,9 @@ def attn(p, cfg: ModelConfig, x: torch.Tensor, positions: torch.Tensor,
     """
     hq, hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.hd
     b, t, _ = x.shape
-    q = x @ p["wq"]
-    k = x @ p["wk"]
-    v = x @ p["wv"]
+    q = dot(x, p["wq"])
+    k = dot(x, p["wk"])
+    v = dot(x, p["wv"])
     if "bq" in p:
         q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
     qh = rope(_split_heads(q, hq, dh), positions, cfg.rope_theta)
@@ -148,4 +148,4 @@ def attn(p, cfg: ModelConfig, x: torch.Tensor, positions: torch.Tensor,
                                  window=window, q_positions=positions,
                                  kv_valid_len=None)
     out = out.transpose(1, 2).reshape(b, t, hq * dh)
-    return out @ p["wo"], new_cache
+    return dot(out, p["wo"]), new_cache

@@ -1,6 +1,7 @@
 """Shared building blocks: RMSNorm, RoPE, gated MLP, embeddings — the JAX
 package's ``models/layers.py``, with the same float32 arithmetic and casts
-back to the input's dtype."""
+back to the input's dtype. A product of a bfloat16 activation and a float32
+weight runs in float32 (:func:`dot`), as ``jnp.einsum`` promotes it."""
 
 from __future__ import annotations
 
@@ -9,6 +10,16 @@ import torch.nn.functional as F
 
 from .config import ModelConfig
 from .schema import ParamSpec
+
+
+def dot(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``x @ w`` in the promoted dtype of the two (torch's ``matmul`` takes
+    one dtype; ``jnp.einsum`` promotes a bfloat16 x float32 product to
+    float32). Operands of one dtype go straight to ``@``."""
+    if x.dtype != w.dtype:
+        dt = torch.promote_types(x.dtype, w.dtype)
+        x, w = x.to(dt), w.to(dt)
+    return x @ w
 
 
 # ------------------------------------------------------------------ norm --
@@ -55,9 +66,9 @@ def mlp_schema(cfg: ModelConfig, stack=()):
 
 def mlp(p, x: torch.Tensor) -> torch.Tensor:
     """SwiGLU feed-forward."""
-    gate = F.silu(x @ p["w_gate"])
-    up = x @ p["w_up"]
-    return (gate * up) @ p["w_down"]
+    gate = F.silu(dot(x, p["w_gate"]))
+    up = dot(x, p["w_up"])
+    return dot(gate * up, p["w_down"])
 
 
 # ------------------------------------------------------------- embedding --
@@ -80,4 +91,4 @@ def embed(p, tokens: torch.Tensor) -> torch.Tensor:
 
 
 def unembed(p, x: torch.Tensor) -> torch.Tensor:
-    return x @ p["w"]
+    return dot(x, p["w"])

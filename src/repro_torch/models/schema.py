@@ -38,6 +38,26 @@ def tree_map(fn, tree):
     return fn(tree)
 
 
+def tree_paths(tree, prefix: str = "") -> list:
+    """(path, leaf) pairs of a nested dict in :func:`tree_map`'s order, each
+    path written as the JAX package's ``keystr`` writes a dict path
+    (``['opt']['m']['embed']['tokens']``)."""
+    if isinstance(tree, dict):
+        return [pl for k in sorted(tree)
+                for pl in tree_paths(tree[k], f"{prefix}[{k!r}]")]
+    return [(prefix, tree)]
+
+
+def tree_leaves(tree) -> list:
+    return [leaf for _, leaf in tree_paths(tree)]
+
+
+def tree_unflatten(like, leaves):
+    """The tree of ``like``'s structure holding ``leaves`` in order."""
+    it = iter(leaves)
+    return tree_map(lambda _: next(it), like)
+
+
 def _materialize(spec: ParamSpec, generator: torch.Generator,
                  device: torch.device) -> torch.Tensor:
     if spec.init == "zeros":

@@ -5,9 +5,18 @@ or an MoE MLP (``models/moe.py``, with SkewShield expert placements).
 Layers are grouped into *superblocks* of ``cfg.layer_pattern`` length with
 stacked parameters (leading ``n_groups`` dim), as in the JAX package, so a
 parameter tree converts one-to-one; the JAX package's ``lax.scan`` over the
-groups is a Python loop here. The same forward serves a cache-free step
+groups is a Python loop here, over ``unbind`` views of the stacked leaves
+(so autograd hands each stacked leaf one gradient, the stack of its
+groups'). The same forward serves training and a cache-free step
 (cache=None), prefill (cache + index 0, T = prompt) and decode (cache +
 index t, T = 1).
+
+Training: :func:`lm_loss` is the next-token cross-entropy with the logits
+made one sequence chunk at a time. ``remat`` recomputes each superblock in
+the backward pass, keeping only the outputs of the plain 2-D products
+(``aten.mm``/``aten.addmm``): the JAX package's ``jax.checkpoint`` with
+``dots_with_no_batch_dims_saveable``, so the experts' batched products
+(``bmm``) are recomputed, as there.
 
 mamba, sLSTM and mLSTM layers, the whisper encoder and the vision prefix
 raise ``NotImplementedError`` until their slices.
@@ -15,9 +24,12 @@ raise ``NotImplementedError`` until their slices.
 
 from __future__ import annotations
 
+import functools
 from typing import Any, Dict, Optional
 
 import torch
+from torch.utils.checkpoint import (checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from . import attention as attn_mod
 from . import layers
@@ -114,38 +126,71 @@ def _apply_sub(p, cfg: ModelConfig, j: int, x, positions, cache, cache_index,
     return x, moe_load
 
 
+#: the remat policy: keep the outputs of the 2-D products, recompute the rest
+_SAVE_MATMULS = functools.partial(
+    create_selective_checkpoint_contexts,
+    [torch.ops.aten.mm.default, torch.ops.aten.addmm.default])
+
+
+def _apply_group(gp, cfg: ModelConfig, x, positions, gcache, cache_index,
+                 gplace, use_flash: bool, collect_moe: bool):
+    """One superblock (the JAX package's scan body); returns (x, the stacked
+    expert loads of its MoE sub-layers or None)."""
+    loads = []
+    for j in range(cfg.pattern_period):
+        sub_cache = gcache[f"sub{j}"] if gcache is not None else None
+        place = gplace[j] if gplace is not None else None
+        x, load = _apply_sub(gp[f"sub{j}"], cfg, j, x, positions, sub_cache,
+                             cache_index, place, use_flash, collect_moe)
+        if load is not None:
+            loads.append(load)
+    return x, (torch.stack(loads) if loads else None)
+
+
 def decoder_apply(params, cfg: ModelConfig, x, positions,
                   cache: Optional[PyTree] = None, cache_index: int = 0,
                   placements: Optional[torch.Tensor] = None,
-                  use_flash: bool = False, collect_moe: bool = False):
+                  use_flash: bool = False, remat: bool = True,
+                  collect_moe: bool = False):
     """x: (B, T, D) -> (x, cache), or (x, cache, loads) with
     ``collect_moe``. The cache, when given, is updated in place and
     returned; without one the second value is None.
 
+    Each leaf of ``params["groups"]`` is a stacked (n_groups, ...) tensor
+    or a sequence of its n_groups slices (the train step's autograd
+    leaves).
+
     placements: (n_layers, E) physical slot of each logical expert, per
     layer (None = the identity). ``loads`` stacks each MoE sub-layer's
     ``expert_load`` (by physical slot) as (n_groups, MoE sub-layers per
-    superblock, E), as the JAX package's scan does; None without MoE."""
+    superblock, E), as the JAX package's scan does; None without MoE.
+
+    ``remat`` checkpoints each superblock (see the module docstring) when
+    there is no cache and autograd is recording; otherwise it changes
+    nothing."""
     _check_ported(cfg)
     period = cfg.pattern_period
     n_groups = cfg.n_layers // period
     if placements is not None:
         placements = placements.reshape(n_groups, period, -1)
+    groups = tree_map(lambda a: a.unbind(0) if torch.is_tensor(a) else a,
+                      params["groups"])
+    remat = remat and cache is None and torch.is_grad_enabled()
     group_loads = []
     for g in range(n_groups):
-        gp = tree_map(lambda a: a[g], params["groups"])
-        loads = []
-        for j in range(period):
-            sub_cache = (tree_map(lambda a: a[g], cache[f"sub{j}"])
-                         if cache is not None else None)
-            place = placements[g, j] if placements is not None else None
-            x, load = _apply_sub(gp[f"sub{j}"], cfg, j, x, positions,
-                                 sub_cache, cache_index, place, use_flash,
-                                 collect_moe)
-            if load is not None:
-                loads.append(load)
-        if loads:
-            group_loads.append(torch.stack(loads))
+        gp = tree_map(lambda a: a[g], groups)
+        gcache = (tree_map(lambda a: a[g], cache) if cache is not None
+                  else None)
+        gplace = placements[g] if placements is not None else None
+        args = (gp, cfg, x, positions, gcache, cache_index, gplace,
+                use_flash, collect_moe)
+        if remat:
+            x, loads = checkpoint(_apply_group, *args, use_reentrant=False,
+                                  context_fn=_SAVE_MATMULS)
+        else:
+            x, loads = _apply_group(*args)
+        if loads is not None:
+            group_loads.append(loads)
     if collect_moe:
         return x, cache, (torch.stack(group_loads) if group_loads else None)
     return x, cache
@@ -154,17 +199,19 @@ def decoder_apply(params, cfg: ModelConfig, x, positions,
 def forward(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
             cache: Optional[PyTree] = None, cache_index: int = 0,
             placements: Optional[torch.Tensor] = None,
-            use_flash: bool = False, collect_moe: bool = False):
+            use_flash: bool = False, remat: bool = True,
+            collect_moe: bool = False):
     """batch: {"tokens": (B, T)}. Returns (hidden (B, T, D), cache), or
     (hidden, cache, loads) with ``collect_moe`` (see :func:`decoder_apply`
-    for ``placements`` and ``loads``)."""
+    for ``placements``, ``remat`` and ``loads``)."""
     tokens = batch["tokens"]
     x = layers.embed(params["embed"], tokens).to(torch.bfloat16)
     t = x.shape[1]
     positions = cache_index + torch.arange(t, device=x.device)
     x, new_cache, *loads = decoder_apply(
         params, cfg, x, positions, cache=cache, cache_index=cache_index,
-        placements=placements, use_flash=use_flash, collect_moe=collect_moe)
+        placements=placements, use_flash=use_flash, remat=remat,
+        collect_moe=collect_moe)
     x = layers.rmsnorm(params["final_norm"], x, cfg.norm_eps)
     return (x, new_cache, *loads)
 
@@ -172,7 +219,7 @@ def forward(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
 def logits_from_hidden(params, cfg: ModelConfig, hidden: torch.Tensor
                        ) -> torch.Tensor:
     if cfg.tie_embeddings:
-        logits = hidden @ params["embed"]["tokens"].T
+        logits = layers.dot(hidden, params["embed"]["tokens"].T)
     else:
         logits = layers.unembed(params["unembed"], hidden)
     # mask vocab padding
@@ -182,3 +229,52 @@ def logits_from_hidden(params, cfg: ModelConfig, hidden: torch.Tensor
         mask[cfg.vocab:] = -1e30
         logits = logits + mask
     return logits
+
+
+def _chunk_loss(params, cfg: ModelConfig, hidden: torch.Tensor,
+                labels: torch.Tensor):
+    """One sequence chunk's summed cross-entropy and its count of labels
+    (``labels < 0`` are masked out), over float32 logits."""
+    logits = logits_from_hidden(params, cfg, hidden).to(torch.float32)
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1,
+                        labels.clamp(min=0).long()[..., None])[..., 0]
+    valid = (labels >= 0).to(torch.float32)
+    return torch.sum((logz - gold) * valid), torch.sum(valid)
+
+
+def lm_loss(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
+            placements: Optional[torch.Tensor] = None,
+            use_flash: bool = False, remat: bool = True,
+            loss_chunks: int = 8, collect_moe: bool = False):
+    """Next-token cross-entropy of ``batch`` ({"tokens", "labels"}, each
+    (B, T)), the mean over the labels that are not negative; with
+    ``collect_moe`` also the expert loads (see :func:`decoder_apply`).
+
+    The logits are made per sequence chunk: ``loss_chunks`` chunks, or the
+    largest count below it that divides T (the JAX package's rule), each
+    under ``torch.utils.checkpoint`` while autograd records, so one chunk's
+    float32 (B, T/chunks, V) logits exist at a time, in the backward pass
+    too (the JAX package's ``lax.map``)."""
+    hidden, _, *loads = forward(params, cfg, batch, placements=placements,
+                                use_flash=use_flash, remat=remat,
+                                collect_moe=collect_moe)
+    labels = batch["labels"]
+    t = hidden.shape[1]
+    chunks = min(loss_chunks, t)
+    while t % chunks:
+        chunks -= 1
+    size = t // chunks
+    sums, counts = [], []
+    for c in range(chunks):
+        args = (params, cfg, hidden[:, c * size:(c + 1) * size],
+                labels[:, c * size:(c + 1) * size])
+        if torch.is_grad_enabled():
+            s, n = checkpoint(_chunk_loss, *args, use_reentrant=False)
+        else:
+            s, n = _chunk_loss(*args)
+        sums.append(s)
+        counts.append(n)
+    loss = torch.sum(torch.stack(sums)) / torch.clamp(
+        torch.sum(torch.stack(counts)), min=1.0)
+    return (loss, loads[0]) if collect_moe else loss

@@ -1,15 +1,125 @@
-"""The serve step — the JAX package's ``train/train_step.make_serve_step``.
+"""The train and serve steps — the JAX package's ``train/train_step.py``.
 
-The train step (``make_train_step``, the optimizer, microbatching) comes
-with the training slice.
+``make_train_step`` is microbatched gradient accumulation and an AdamW
+update. The JAX package's ``lax.scan`` over the microbatches is a Python
+loop: each microbatch's gradients come from autograd
+(``torch.autograd.grad``) and are added into float32 (``accum_dtype``)
+accumulators, which are divided by the microbatch count before the update,
+as there. The expert loads of an MoE model are summed over the
+microbatches (not divided, as the JAX package's are not).
+
+Autograd differentiates each stacked superblock leaf as its n_groups
+slices (views of its storage), so a microbatch's gradient arrives a group
+at a time and is added into the accumulator's slice: the full-size
+gradient of a stacked leaf (2 GB in bfloat16 for each of granite-moe's
+expert weights) never exists beside its slices. One microbatch stacks
+the slices, as its update takes the gradients in the parameters' dtype.
+
+Not ported, by decision: the env-gated ``REPRO_PERF_BF16_ACCUM`` and
+``REPRO_PERF_DEFER_GRAD_SYNC`` paths, which steer XLA's gradient sync over
+a TPU mesh's data axes, and the ``unroll`` argument of the scans.
 """
 
 from __future__ import annotations
 
+from typing import Any, Dict
+
 import torch
 
-from ..models import forward, logits_from_hidden
+from ..models import forward, lm_loss, logits_from_hidden
 from ..models.config import ModelConfig
+from ..models.schema import tree_leaves, tree_map, tree_unflatten
+from .optimizer import OptConfig, opt_update
+
+
+def _leaf(p: torch.Tensor) -> torch.Tensor:
+    """An autograd leaf sharing ``p``'s storage."""
+    return p.detach().requires_grad_()
+
+
+def make_train_step(cfg: ModelConfig, opt_cfg: OptConfig,
+                    microbatches: int = 1, use_flash: bool = False,
+                    collect_moe: bool = False, remat: bool = True,
+                    accum_dtype: torch.dtype = torch.float32,
+                    loss_chunks: int = 8):
+    """Returns train_step(params, opt_state, batch, placements=None) ->
+    (params, opt_state, metrics).
+
+    ``batch`` is {"tokens", "labels"}, each (B, T) with B a multiple of
+    ``microbatches``. The step updates ``params`` and ``opt_state`` in place
+    (:func:`opt_update`) and returns them. ``metrics`` holds 0-d tensors
+    ``loss`` (the mean over the microbatches), ``grad_norm`` and ``lr``,
+    and, with ``collect_moe`` on an MoE model, ``expert_load`` (n_groups,
+    MoE sub-layers per superblock, E) by physical slot.
+
+    ``use_flash=True`` raises ``NotImplementedError``: the flash kernel
+    computes the forward only (the JAX package's has no VJP either), so
+    training attention takes the plain path.
+    """
+    if use_flash:
+        raise NotImplementedError(
+            "the flash kernel has no backward pass; train with "
+            "use_flash=False (the plain attention path)")
+    moe = collect_moe and cfg.moe_experts > 0
+
+    def grads_of(params, mb, placements):
+        """The microbatch's loss, loads and gradients: one per leaf, or, for
+        a stacked superblock leaf, a tuple of one per group."""
+        with torch.enable_grad():
+            live = {k: tree_map(_leaf, v) for k, v in params.items()
+                    if k != "groups"}
+            live["groups"] = tree_map(
+                lambda a: tuple(_leaf(s) for s in a.unbind(0)),
+                params["groups"])
+            out = lm_loss(live, cfg, mb, placements=placements, remat=remat,
+                          loss_chunks=loss_chunks, collect_moe=moe)
+            loss, loads = out if moe else (out, None)
+            leaves = tree_leaves(live)
+            flat = [x for leaf in leaves for x in
+                    (leaf if isinstance(leaf, tuple) else (leaf,))]
+            flat_grads = iter(torch.autograd.grad(
+                loss, flat, allow_unused=True, materialize_grads=True))
+        grads = [tuple(next(flat_grads) for _ in leaf)
+                 if isinstance(leaf, tuple) else next(flat_grads)
+                 for leaf in leaves]
+        return loss.detach(), loads, grads
+
+    def train_step(params, opt_state, batch, placements=None):
+        if microbatches == 1:
+            loss, loads, grads = grads_of(params, batch, placements)
+            grads = [torch.stack(g) if isinstance(g, tuple) else g
+                     for g in grads]
+        else:
+            b = batch["tokens"].shape[0]
+            if b % microbatches:
+                raise ValueError(f"batch {b} does not split into "
+                                 f"{microbatches} microbatches")
+            size = b // microbatches
+            grads = [torch.zeros(p.shape, dtype=accum_dtype, device=p.device)
+                     for p in tree_leaves(params)]
+            loss, loads = None, None
+            for i in range(microbatches):
+                mb = {k: v[i * size:(i + 1) * size] for k, v in batch.items()}
+                mb_loss, mb_loads, mb_grads = grads_of(params, mb, placements)
+                for acc, g in zip(grads, mb_grads):
+                    for a, part in (zip(acc, g) if isinstance(g, tuple)
+                                    else ((acc, g),)):
+                        a.add_(part)
+                del mb_grads
+                loss = mb_loss if loss is None else loss + mb_loss
+                if mb_loads is not None:
+                    loads = mb_loads if loads is None else loads + mb_loads
+            for acc in grads:
+                acc.div_(microbatches)
+            loss = loss / microbatches
+        params, opt_state, om = opt_update(tree_unflatten(params, grads),
+                                           opt_state, params, opt_cfg)
+        metrics: Dict[str, Any] = {"loss": loss, **om}
+        if loads is not None:
+            metrics["expert_load"] = loads
+        return params, opt_state, metrics
+
+    return train_step
 
 
 def make_serve_step(cfg: ModelConfig, use_flash: bool = False):
@@ -25,7 +135,7 @@ def make_serve_step(cfg: ModelConfig, use_flash: bool = False):
     def serve_step(params, cache, batch, index, placements=None):
         hidden, new_cache = forward(params, cfg, batch, cache=cache,
                                     cache_index=index, placements=placements,
-                                    use_flash=use_flash)
+                                    use_flash=use_flash, remat=False)
         logits = logits_from_hidden(params, cfg, hidden[:, -1:, :])
         return logits, new_cache
 

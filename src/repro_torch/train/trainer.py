@@ -1,0 +1,208 @@
+"""Training loop: checkpoint/restart, the straggler watchdog and SkewShield
+MoE placement updates — the JAX package's ``train/trainer.py``, on one
+device.
+
+Two differences from the JAX package, each a fault of the reference that
+the port does not copy:
+
+* **Loads by logical expert.** A step's ``expert_load`` counts entries per
+  *physical* slot (``models.moe``), while ``SkewShieldPlacer.update`` takes
+  loads per *logical* expert. The JAX trainer passes the physical loads as
+  they come, which is right only until the first move. Here each layer's
+  loads are mapped back before the update: ``logical = physical[placement]``
+  (``placement[l]`` is logical expert ``l``'s slot).
+* **Placements in the checkpoint.** The JAX trainer saves the parameters
+  and the optimizer state, whose expert slices SkewShield has permuted, but
+  not the placements, so after ``try_resume`` every placer starts again at
+  the identity and each token reaches another expert's weights. Here the
+  checkpoint also holds, per layer, the placement and the placer's routing
+  table (its controller's overrides, which its next plan starts from), and
+  ``try_resume`` restores both.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import time
+from typing import Any, Callable, Dict, List, Optional
+
+import numpy as np
+import torch
+
+from ..core import Assignment
+from ..models import model_schema, schema
+from ..models.config import ModelConfig
+from ..models.skewshield import (SkewShieldPlacer, permute_expert_params,
+                                 placements_array)
+from ..streams.device import resolve_device
+from .checkpoint import CheckpointManager
+from .optimizer import OptConfig, opt_init
+from .train_step import make_train_step
+
+_EXPERT_WEIGHTS = ("w_gate", "w_up", "w_down")
+
+
+@dataclasses.dataclass
+class TrainerConfig:
+    total_steps: int = 100
+    checkpoint_every: int = 50
+    rebalance_every: int = 10          # SkewShield interval (steps)
+    microbatches: int = 1
+    log_every: int = 10
+    straggler_factor: float = 3.0      # step-time watchdog threshold
+    skewshield: bool = True
+    theta_max: float = 0.1
+
+
+class Trainer:
+    """``data_fn(step)`` returns the step's batch, {"tokens", "labels"} as
+    tensors or numpy arrays (moved to ``device``). Parameters come from
+    ``schema.init`` with a generator seeded ``seed`` on ``device`` (None =
+    the CUDA card)."""
+
+    def __init__(self, cfg: ModelConfig, opt_cfg: OptConfig,
+                 tcfg: TrainerConfig, checkpoint_dir: str,
+                 data_fn: Callable[[int], Dict[str, Any]],
+                 seed: int = 0, device=None):
+        self.cfg = cfg
+        self.tcfg = tcfg
+        self.data_fn = data_fn
+        self.device = resolve_device(device)
+        self.schema = model_schema(cfg)
+        self.params = schema.init(
+            self.schema, torch.Generator(device=self.device).manual_seed(seed),
+            self.device)
+        self.opt_state = opt_init(self.params)
+        self.ckpt = CheckpointManager(checkpoint_dir)
+        self.step_fn = make_train_step(
+            cfg, opt_cfg, microbatches=tcfg.microbatches,
+            collect_moe=tcfg.skewshield and cfg.moe_experts > 0)
+        self.step = 0
+        self.history: List[Dict[str, float]] = []
+        self.step_times: List[float] = []
+        self.placers: List[SkewShieldPlacer] = []
+        if cfg.moe_experts and tcfg.skewshield:
+            bytes_per_expert = 3 * cfg.d_model * cfg.d_ff * 2.0
+            n_shards = min(cfg.moe_experts, 16)
+            # shards must divide experts for the slot layout
+            while cfg.moe_experts % n_shards:
+                n_shards -= 1
+            self.placers = [SkewShieldPlacer(cfg.moe_experts, n_shards,
+                                             bytes_per_expert,
+                                             theta_max=tcfg.theta_max)
+                            for _ in range(cfg.n_layers)]
+
+    # -------------------------------------------------------------- resume
+    def _state(self) -> Dict[str, Any]:
+        state = {"params": self.params, "opt": self.opt_state}
+        if self.placers:
+            state["skewshield"] = {
+                "placement": torch.from_numpy(np.stack(
+                    [p.placement for p in self.placers]).astype(np.int32)),
+                "table": torch.from_numpy(np.stack(
+                    [self._table(p) for p in self.placers])),
+            }
+        return state
+
+    @staticmethod
+    def _table(placer: SkewShieldPlacer) -> np.ndarray:
+        """The placer's routing-table overrides as (E, 2) rows of (expert,
+        shard) in the table's order, padded with -1."""
+        rows = np.full((placer.e, 2), -1, np.int64)
+        table = placer.controller.assignment.table
+        if table:
+            rows[:len(table)] = np.asarray(list(table.items()), np.int64)
+        return rows
+
+    def try_resume(self) -> bool:
+        try:
+            step, state, _ = self.ckpt.restore(self._state())
+        except (FileNotFoundError, ValueError):
+            return False
+        self.params, self.opt_state = state["params"], state["opt"]
+        if self.placers:
+            sk = state["skewshield"]
+            for placer, placement, table in zip(
+                    self.placers, sk["placement"].numpy(),
+                    sk["table"].numpy()):
+                placer.placement = placement.astype(np.int32)
+                ctrl = placer.controller
+                ctrl.assignment = Assignment(
+                    ctrl.assignment.hash_router,
+                    {int(e): int(d) for e, d in table if e >= 0})
+        self.step = step
+        return True
+
+    # ------------------------------------------------------------ main loop
+    def placements(self) -> Optional[torch.Tensor]:
+        if not self.placers:
+            return None
+        return placements_array(self.placers, self.device)
+
+    def _batch(self, step: int) -> Dict[str, torch.Tensor]:
+        return {k: torch.as_tensor(v).to(self.device, torch.long)
+                for k, v in self.data_fn(step).items()}
+
+    def run(self, steps: Optional[int] = None) -> List[Dict[str, float]]:
+        steps = steps if steps is not None else self.tcfg.total_steps
+        end = self.step + steps
+        while self.step < end:
+            batch = self._batch(self.step)
+            t0 = time.perf_counter()
+            self.params, self.opt_state, metrics = self.step_fn(
+                self.params, self.opt_state, batch, self.placements())
+            loss = float(metrics["loss"])
+            dt = time.perf_counter() - t0
+            self.step += 1
+            self.step_times.append(dt)
+            rec = {"step": self.step, "loss": loss,
+                   "grad_norm": float(metrics["grad_norm"]),
+                   "time_s": dt}
+            self.history.append(rec)
+            self._watchdog(dt)
+            if self.placers and self.step % self.tcfg.rebalance_every == 0 \
+                    and "expert_load" in metrics:
+                self._rebalance_experts(metrics["expert_load"].cpu().numpy())
+            if self.step % self.tcfg.checkpoint_every == 0:
+                self.save()
+        return self.history
+
+    def save(self):
+        self.ckpt.save(self.step, self._state(), meta={"arch": self.cfg.name})
+
+    # -------------------------------------------------- fleet health hooks
+    def _watchdog(self, dt: float) -> None:
+        """Straggler detection: a step far beyond the trailing median flags a
+        slow worker; the balancer-level response (derate_worker) lives in the
+        controller — here we record the event for the ops plane."""
+        if len(self.step_times) < 8:
+            return
+        med = float(np.median(self.step_times[-8:]))
+        if dt > self.tcfg.straggler_factor * med:
+            self.history[-1]["straggler_suspect"] = True
+
+    # ----------------------------------------------------- SkewShield hook
+    @torch.no_grad()
+    def _rebalance_experts(self, expert_load: np.ndarray) -> None:
+        """expert_load: (n_groups, moe_per_group, E) accumulated loads by
+        physical slot."""
+        period = self.cfg.pattern_period
+        moe_js = [j for j in range(period) if self.cfg.layer_is_moe(j)]
+        n_groups = self.cfg.n_layers // period
+        for g in range(n_groups):
+            for mi, j in enumerate(moe_js):
+                placer = self.placers[g * period + j]
+                old = placer.placement.copy()
+                upd = placer.update(expert_load[g, mi][old])
+                if len(upd.moved_experts):
+                    # weights AND optimizer moments move with the expert —
+                    # Adam state must stay aligned with its parameter.
+                    trees = [self.params["groups"][f"sub{j}"]["moe"]] + [
+                        self.opt_state[k]["groups"][f"sub{j}"]["moe"]
+                        for k in ("m", "v", "master")]
+                    for tree in trees:
+                        moved = permute_expert_params(
+                            {name: tree[name][g] for name in _EXPERT_WEIGHTS},
+                            old, upd.placement)
+                        for name in _EXPERT_WEIGHTS:
+                            tree[name][g].copy_(moved[name])

@@ -2,7 +2,8 @@
 ``chip_smoke.py`` imports JAX or the JAX package, the package imports and
 runs with both blocked (the stream stage, a ``ChaosRunner`` interval with
 a kill and an ``AutoscaleLoop`` step on the device ring, a smoke serve
-step, an MoE smoke serve path and the serving engine), and its entry
+step, an MoE smoke serve path, the serving engine, a keyed data pipeline
+interval and an MoE train step), and its entry
 points refuse to run without a CUDA device unless the caller asks for the
 CPU."""
 
@@ -107,6 +108,37 @@ first, greedy = serve_local(moe_cfg, 2, 12, 2, device="cpu",
 assert greedy.shape == (2, 2) and bool(torch.isfinite(first.float()).all())
 eng = ServeEngine(n_replicas=4)
 assert eng.run_interval([(1, 64, 8), (2, 32, 4)]).requests == 2
+
+import tempfile
+import repro_torch.data
+import repro_torch.train
+from repro_torch.data import KeyedDataPipeline, zipf_sources
+from repro_torch.models import schema as schema_mod
+from repro_torch.models.transformer import model_schema
+from repro_torch.train import (OptConfig, Trainer, TrainerConfig,
+                               make_train_step, opt_init)
+pipe = KeyedDataPipeline(zipf_sources(16), n_workers=2, seq_len=16,
+                         vocab=moe_cfg.vocab)
+pipe.run_interval(64)
+batch = pipe.worker_batch(0, 2)
+assert batch["tokens"].shape == (2, 16)
+batch = {k: torch.from_numpy(v).long() for k, v in batch.items()}
+params = schema_mod.init(model_schema(moe_cfg),
+                         torch.Generator().manual_seed(0), "cpu")
+state = opt_init(params)
+params, state, metrics = make_train_step(
+    moe_cfg, OptConfig(), microbatches=2, collect_moe=True)(
+    params, state, batch)
+assert bool(torch.isfinite(metrics["loss"])) and int(state["step"]) == 1
+assert metrics["expert_load"].shape == (moe_cfg.n_layers, 1,
+                                        moe_cfg.moe_experts)
+with tempfile.TemporaryDirectory() as d:
+    try:
+        Trainer(moe_cfg, OptConfig(), TrainerConfig(), d, None)
+    except RuntimeError as e:
+        assert "device='cpu'" in str(e)
+    else:
+        raise AssertionError("Trainer without device= ran with no CUDA")
 assert not any(m == "jax" or m.startswith(("jax.", "repro."))
                for m in sys.modules if sys.modules[m] is not None)
 print("ok")
