@@ -110,6 +110,34 @@ It prints one JSON line per phase, each with its wall seconds:
   CPU (``CARD_CPU_TOL``; the routed entries that differ are counted, and
   the loss is held only where none do). No kernel may launch.
 
+* ``large_table`` — a routing table past the compact layout's 16,384
+  slots (``LargeTableConfig``, ROADMAP C13): the stream deployment's
+  WordCount on the device ring (``substrate="kernels"``) with 24,000 keys
+  installed (32,768 slots once padded), 3 intervals of 1M tuples, against
+  the CPU columnar stage with the same table: reports, outputs and the
+  dense dest table of every key id identical; row
+  ``routing_lookup[dense,large_table]``.
+* ``serve_arch`` — once for each of ``ARCH_SERVES`` (whisper-large-v3,
+  internvl2-1b, xlstm-125m) at full width and depth, random bf16 weights,
+  4 requests: the cache-free step with flash (one launch per decoder
+  attention layer, each output held against the plain version; 0 for
+  xlstm), the same step without flash, the cached prefill (whisper's
+  frames encoded once; internvl2's 256-token prefix before the prompt)
+  and 16 timed greedy decode steps (none may launch flash). The logits
+  gaps (flash against plain, cached prefill against both) are reported
+  against atol 0.3 / rtol 0.05 (secondary, ROADMAP C3); the parameter
+  count must equal the schema's. Then the flash rows at whisper's and
+  internvl2's shapes (``arch_flash_rows``).
+* ``mamba`` — one jamba-1.5-large-398b mamba layer at full width
+  (``MambaPhaseConfig``): a bf16 prefill of 2048 tokens (ms, tokens/s,
+  peak memory above its inputs beside the (B, T, Di, N) float32 tensor's
+  bytes) and 16 decode steps; in float32, a prefill of 2032 tokens and 16
+  one-token steps against the full scan on the card, and the card against
+  the CPU at 128 tokens, each within 1e-4 of the largest value.
+* ``train_archs`` — ``lm_loss`` and one float32 train step (2
+  microbatches) of jamba, xlstm, whisper and internvl2 at smoke size on
+  the card and on the CPU: finite, and within ``CARD_CPU_TOL``.
+
 Then one ``{"kernels": [...]}`` line (per kernel and call site: launches on
 its path, max error, kernel/plain/library times and the bound), the card's
 name and power limit as ``nvidia-smi`` gives them, and last
@@ -612,9 +640,7 @@ def phase_flash(torch, scfg: ServeConfig, mcfg: "MoeServeConfig",
     global layer at D = 64): against its plain version, with its time, the
     plain version's and SDPA's (the one PyTorch call that computes the same
     function; the port never calls it)."""
-    import torch.nn.functional as F
     from repro_torch.configs import get_config
-    from repro_torch.kernels import flash_attention, flash_attention_plain
     edge = check_flash_edges(torch, dev)
     if edge > 1:
         raise AssertionError(f"flash edge cases: {edge:.3g} x tolerance")
@@ -624,54 +650,64 @@ def phase_flash(torch, scfg: ServeConfig, mcfg: "MoeServeConfig",
              for w in sorted(set(gemma.window_pattern), reverse=True)]
     cases.append((f"flash_attention[global,D={granite.hd}]", granite, mcfg,
                   0))
-    rows = []
-    for name, cfg, sc, window in cases:
-        b, hq, hkv, d = sc.batch, cfg.n_heads, cfg.n_kv_heads, cfg.hd
-        t = s = sc.prompt
-        q, k, v = _flash_inputs(torch, (b, hq, hkv, t, s, d), torch.bfloat16,
-                                dev, sc.seed)
-        got = flash_attention(q, k, v, causal=True, window=window)
-        want = flash_attention_plain(q, k, v, causal=True, window=window)
-        err = float((got.float() - want.float()).abs().max())
-        if err > FLASH_ATOL["bfloat16"]:
-            raise AssertionError(f"flash window={window}: kernel off its "
-                                 f"plain version by {err}")
-        if window:
-            pos = torch.arange(t, device=dev)
-            mask = (pos[None] <= pos[:, None]) & \
-                (pos[None] > pos[:, None] - window)
-            sdpa_kw = {"attn_mask": mask}
-        else:                      # T == S: top-left causal is right-aligned
-            sdpa_kw = {"is_causal": True}
+    return [flash_row(torch, timer, name, cfg, sc.batch, sc.prompt, window,
+                      sc.seed, dev, edge)
+            for name, cfg, sc, window in cases]
 
-        def sdpa():
-            return F.scaled_dot_product_attention(q, k, v, enable_gqa=True,
-                                                  **sdpa_kw)
 
-        lib_err = float((sdpa().float() - want.float()).abs().max())
-        pairs = admitted_pairs(t, s, True, window)
-        nbytes = 2 * (q.numel() + k.numel() + v.numel() + got.numel())
-        flops = 4 * d * pairs * b * hq
-        kernel_ms = timer.ms(lambda: flash_attention(q, k, v, causal=True,
-                                                     window=window))
-        lower = bound(nbytes, flops, BF16_FLOPS_PER_S)
-        rows.append({
-            "name": name, "route": "cuda",
-            "source": "src/repro_torch/csrc/flash_attention.cu",
-            "replaces": "src/repro/kernels/flash_attention.py:31",
-            "shape": {"b": b, "hq": hq, "hkv": hkv, "t": t, "s": s, "d": d,
-                      "window": window, "dtype": "bfloat16",
-                      "admitted_pairs_per_head": pairs},
-            "max_abs_err": err, "edge_err_over_tol": edge,
-            "library_max_abs_err": lib_err, "ms": kernel_ms,
-            # the mask's work (4 D FLOPs an admitted pair) over the time,
-            # and the share of the bound the kernel reaches
-            "tflops": flops / kernel_ms * 1e-9,
-            "bound_share": lower["bound_ms"] / kernel_ms,
-            "plain_ms": timer.ms(lambda: flash_attention_plain(
-                q, k, v, causal=True, window=window)),
-            **lower, "library_ms": timer.ms(sdpa)})
-    return rows
+def flash_row(torch, timer: Timer, name: str, cfg, b: int, t: int,
+              window: int, seed: int, dev, edge: float) -> dict:
+    """The flash kernel at ``cfg``'s heads on a (b, t) causal prompt against
+    its plain version: the row of the ``kernels`` line, with the kernel's,
+    the plain version's and SDPA's times and the bound (launches are added
+    by ``main``)."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention, flash_attention_plain
+    hq, hkv, d = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    s = t
+    q, k, v = _flash_inputs(torch, (b, hq, hkv, t, s, d), torch.bfloat16,
+                            dev, seed)
+    got = flash_attention(q, k, v, causal=True, window=window)
+    want = flash_attention_plain(q, k, v, causal=True, window=window)
+    err = float((got.float() - want.float()).abs().max())
+    if err > FLASH_ATOL["bfloat16"]:
+        raise AssertionError(f"{name}: kernel off its plain version by "
+                             f"{err}")
+    if window:
+        pos = torch.arange(t, device=dev)
+        mask = (pos[None] <= pos[:, None]) & \
+            (pos[None] > pos[:, None] - window)
+        sdpa_kw = {"attn_mask": mask}
+    else:                          # T == S: top-left causal is right-aligned
+        sdpa_kw = {"is_causal": True}
+
+    def sdpa():
+        return F.scaled_dot_product_attention(q, k, v, enable_gqa=True,
+                                              **sdpa_kw)
+
+    lib_err = float((sdpa().float() - want.float()).abs().max())
+    pairs = admitted_pairs(t, s, True, window)
+    nbytes = 2 * (q.numel() + k.numel() + v.numel() + got.numel())
+    flops = 4 * d * pairs * b * hq
+    kernel_ms = timer.ms(lambda: flash_attention(q, k, v, causal=True,
+                                                 window=window))
+    lower = bound(nbytes, flops, BF16_FLOPS_PER_S)
+    return {
+        "name": name, "route": "cuda",
+        "source": "src/repro_torch/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention.py:31",
+        "shape": {"b": b, "hq": hq, "hkv": hkv, "t": t, "s": s, "d": d,
+                  "window": window, "dtype": "bfloat16",
+                  "admitted_pairs_per_head": pairs},
+        "max_abs_err": err, "edge_err_over_tol": edge,
+        "library_max_abs_err": lib_err, "ms": kernel_ms,
+        # the mask's work (4 D FLOPs an admitted pair) over the time, and
+        # the share of the bound the kernel reaches
+        "tflops": flops / kernel_ms * 1e-9,
+        "bound_share": lower["bound_ms"] / kernel_ms,
+        "plain_ms": timer.ms(lambda: flash_attention_plain(
+            q, k, v, causal=True, window=window)),
+        **lower, "library_ms": timer.ms(sdpa)}
 
 
 # -- phases 3 and 4: the two configurations -------------------------------------
@@ -1751,8 +1787,9 @@ class FlashSpy:
         return o
 
     def per_call(self) -> dict:
-        return {"calls": len(self.ratios), "max_abs_err": max(self.errs),
-                "worst_err_over_tol": max(self.ratios),
+        return {"calls": len(self.ratios),
+                "max_abs_err": max(self.errs, default=0.0),
+                "worst_err_over_tol": max(self.ratios, default=0.0),
                 "tolerance": "FLASH_ATOL[dtype] * rms(v) + eps(dtype) * "
                              "|plain|"}
 
@@ -1814,11 +1851,14 @@ def cache_free_steps(torch, cfg, params, batch, spy: FlashSpy, sync,
 
 
 def cached_greedy(torch, step, params, cache, batch, tokens: int, sync,
-                  *extra) -> tuple:
+                  *extra, start: int = None, decode_batch=None) -> tuple:
     """Prefill ``batch`` through ``cache``, then ``tokens`` greedy decode
-    steps, each call timed. Returns the prefill's logits, its seconds, the
-    decode ms of each step and the greedy tokens (batch, tokens)."""
-    prompt = batch["tokens"].shape[1]
+    steps from index ``start`` (default: the prompt's length), each given
+    ``decode_batch`` too (whisper's encoder output) and timed. Returns the
+    prefill's logits, its seconds, the decode ms of each step and the
+    greedy tokens (batch, tokens)."""
+    start = batch["tokens"].shape[1] if start is None else start
+    decode_batch = decode_batch or {}
     (logits, cache), prefill_s = timed(
         sync, lambda: step(params, cache, batch, 0, *extra))
     first = logits
@@ -1827,7 +1867,8 @@ def cached_greedy(torch, step, params, cache, batch, tokens: int, sync,
         nxt = torch.argmax(logits[:, -1], dim=-1)[:, None]
         greedy.append(nxt[:, 0])
         (logits, cache), secs = timed(sync, lambda: step(
-            params, cache, {"tokens": nxt}, prompt + i, *extra))
+            params, cache, {"tokens": nxt, **decode_batch}, start + i,
+            *extra))
         decode_ms.append(secs * 1e3)
     return first, prefill_s, decode_ms, torch.stack(greedy, 1).cpu().numpy()
 
@@ -2526,6 +2567,370 @@ def _train_card_vs_cpu(torch, cfg, tcfg: TrainPhaseConfig, dev,
     return out
 
 
+# -- large routing tables and the other archs ---------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class LargeTableConfig:
+    """A routing table past the compact layout's 16,384 slots (ROADMAP
+    C13): the stream deployment's WordCount stage with ``installed`` keys
+    in its table (24,000: 32,768 slots once the engine pads the table to a
+    power of two), theta_max high enough that no interval plans, so the
+    table stays as installed; ``intervals`` intervals of ``tuples``."""
+
+    installed: int = 24_000
+    tuples: int = 1_000_000
+    intervals: int = 3
+    theta_max: float = 100.0
+
+
+def phase_large_table(cfg: Config, lcfg: LargeTableConfig, device,
+                      sync) -> tuple:
+    """A ``device``/``kernels`` stage with the large table against the CPU
+    columnar stage with the same table: the routes of every key, the
+    reports, outputs and emitted sum identical. Returns (metrics, the
+    table's arrays at the stage's padded capacity and its dense domain,
+    for the kernel's row, and the routing launches in the stage's
+    intervals)."""
+    from repro_torch.kernels import route_keys
+    from repro_torch.streams import WorkloadGen
+    tcfg = dataclasses.replace(cfg, theta_max=lcfg.theta_max,
+                               table_max=2 * lcfg.installed)
+    dev = make_stage(tcfg, "device", "kernels", device)
+    ref = make_stage(tcfg, "columnar", "numpy", "cpu")
+    rng = np.random.default_rng(cfg.seed + 13)
+    keys = rng.choice(cfg.k, size=lcfg.installed, replace=False)
+    table = dict(zip(keys.tolist(),
+                     rng.integers(0, cfg.n_tasks, keys.size).tolist()))
+    for stage in (dev, ref):
+        stage.controller.assignment.table = dict(table)
+    gen = WorkloadGen(k=cfg.k, z=cfg.z, f=cfg.f, seed=cfg.seed,
+                      window=cfg.window)
+    interval_ms, launches = [], 0
+    for i in range(lcfg.intervals):
+        if i:
+            gen.interval(dev.controller.assignment)
+        tuples = gen.draw_tuples(lcfg.tuples).astype(np.int64)
+        before = route_keys.launches
+        sync()
+        t0 = time.perf_counter()
+        got = dev.process_interval_arrays(tuples)
+        sync()
+        interval_ms.append((time.perf_counter() - t0) * 1e3)
+        launches += route_keys.launches - before
+        _same_report(got, ref.process_interval_arrays(tuples), exact=True)
+        # the dense dest table the interval routed with, every key id
+        routes = dev.backend._dest_dense_arrays()[1]
+        if not np.array_equal(routes, ref.controller.assignment.dest(
+                np.arange(routes.size))):
+            raise AssertionError(f"interval {i + 1}: routes differ from the "
+                                 "CPU assignment")
+    if dev.outputs != ref.outputs or dev.emitted_sum != ref.emitted_sum:
+        raise AssertionError("outputs differ from the CPU reference")
+    slots = dev._table_capacity
+    if dev.controller.assignment.table_size != lcfg.installed or \
+            slots <= 16384:
+        raise AssertionError(f"the table did not stay past 16,384 slots: "
+                             f"{dev.controller.assignment.table_size} "
+                             f"entries, {slots} slots")
+    tk, td = dev.controller.assignment.table_arrays(slots)
+    return ({"table_keys_installed": lcfg.installed, "table_slots": slots,
+             "intervals": lcfg.intervals,
+             "tuples_per_interval": lcfg.tuples, "interval_ms": interval_ms,
+             "routes_match_cpu": True, "reports_match_cpu": True},
+            (tk, td, dev.backend.fleet.domain), launches)
+
+
+@dataclasses.dataclass(frozen=True)
+class ArchServeConfig:
+    """A serving deployment of one of the archs with recurrent layers or a
+    front end, at full width and depth: ``batch`` requests of ``prompt``
+    text tokens (after internvl2's 256-token vision prefix; against
+    whisper's 1500 encoder frames, inside its 448-token decoder context),
+    16 greedy tokens each."""
+
+    arch: str
+    prompt: int
+    batch: int = 4
+    tokens: int = 16
+    seed: int = 0
+    atol: float = 0.3
+    rtol: float = 0.05
+
+
+ARCH_SERVES = (ArchServeConfig("whisper-large-v3", 256),
+               ArchServeConfig("internvl2-1b", 1792),
+               ArchServeConfig("xlstm-125m", 2048))
+
+
+def _gap(a, b, acfg) -> dict:
+    gap = (a - b).abs()
+    ratio = float((gap / (acfg.atol + acfg.rtol * b.abs())).max())
+    return {"max_abs_gap": float(gap.max()), "max_gap_over_tol": ratio,
+            "atol": acfg.atol, "rtol": acfg.rtol,
+            "within_tolerance": ratio <= 1}
+
+
+def phase_serve_arch(torch, cfg, acfg: ArchServeConfig, device,
+                     sync) -> dict:
+    """One arch's serve path on ``device``: (1) the cache-free step through
+    the flash kernel, every output held against the plain version on the
+    model's activations; (2) the same step without flash; (3) the cached
+    prefill and ``tokens`` greedy decode steps, whisper's frames encoded
+    once for them and internvl2's decode index past its prefix. The logits
+    gaps (1)-(2) and (3)-(1) are secondary (ROADMAP C3), reported against
+    atol/rtol; ``main`` checks the flash counts."""
+    from repro_torch.kernels import flash_attention
+    from repro_torch.launch.serve import frontend_inputs, init_request
+    from repro_torch.models import init_cache, schema
+    from repro_torch.models.transformer import encode, model_schema
+    from repro_torch.train.train_step import make_serve_step
+    dev = torch.device(device)
+    cuda = dev.type == "cuda"
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    gen = torch.Generator(device=dev).manual_seed(acfg.seed)
+    params, prompt = init_request(cfg, acfg.batch, acfg.prompt, dev, gen)
+    front = frontend_inputs(cfg, acfg.batch, dev, gen)
+    prefix = cfg.prefix_len if "pixel_embeds" in front else 0
+    kinds = [cfg.layer_kind(i) for i in range(cfg.n_layers)]
+    out = {"arch": cfg.name, "n_layers": cfg.n_layers,
+           "encoder_layers": cfg.encoder_layers, "d_model": cfg.d_model,
+           "n_heads": cfg.n_heads, "n_kv_heads": cfg.n_kv_heads,
+           "head_dim": cfg.hd, "d_ff": cfg.d_ff, "vocab": cfg.vocab,
+           "layer_kinds": {k: kinds.count(k) for k in sorted(set(kinds))},
+           "batch": acfg.batch, "prompt": acfg.prompt, "prefix": prefix,
+           "encoder_frames": cfg.encoder_seq if "frames" in front else 0,
+           "new_tokens": acfg.tokens,
+           "params": sum(x.numel() for x in _leaves(params)),
+           "schema_params": schema.count_params(model_schema(cfg))}
+    if out["params"] != out["schema_params"]:
+        raise AssertionError(f"{cfg.name}: {out['params']} parameters, the "
+                             f"schema has {out['schema_params']}")
+    batch = {"tokens": prompt, **front}
+    with FlashSpy(torch) as spy:
+        a, b, steps, launches = cache_free_steps(torch, cfg, params, batch,
+                                                 spy, sync)
+        out.update(steps)
+        out["flash_vs_plain"] = _gap(a, b, acfg)
+        spy.calls.clear()
+        flash_attention.launches = 0
+        decode_batch = {}
+        if "frames" in front:
+            with torch.inference_mode():
+                enc, secs = timed(sync, lambda: encode(params, cfg,
+                                                       front["frames"]))
+            out["encode_seconds"] = secs
+            decode_batch = {"encoder_out": enc}
+            batch = {"tokens": prompt, **decode_batch}
+        cache = init_cache(cfg, acfg.batch, prefix + acfg.prompt
+                           + acfg.tokens, dev)
+        first, prefill_s, decode_ms, greedy = cached_greedy(
+            torch, make_serve_step(cfg), params, cache, batch, acfg.tokens,
+            sync, start=prefix + acfg.prompt, decode_batch=decode_batch)
+        launches["cached"] = flash_attention.launches
+    if spy.calls:
+        raise AssertionError(f"the cached path reached flash: {spy.calls}")
+    first = first.float()
+    if greedy.shape != (acfg.batch, acfg.tokens) or \
+            not bool(torch.isfinite(first).all()):
+        raise AssertionError(f"{cfg.name}: cached output malformed")
+    n_tokens = acfg.batch * (prefix + acfg.prompt)
+    out["cached"] = {
+        "prefill_seconds": prefill_s,
+        "prefill_tokens_per_s": n_tokens / prefill_s,
+        "prefill_vs_flash": _gap(first, a, acfg),
+        "prefill_vs_plain": _gap(first, b, acfg),
+        "decode_ms_per_token": decode_ms,
+        "decode_ms_per_token_median": statistics.median(decode_ms),
+        "greedy_tokens": greedy.tolist()}
+    out["launches"] = launches
+    out["attention_layers"] = kinds.count("attn")
+    if cuda:
+        out["device_memory_peak_bytes"] = torch.cuda.max_memory_allocated()
+    return out
+
+
+@dataclasses.dataclass(frozen=True)
+class MambaPhaseConfig:
+    """One jamba-1.5-large-398b mamba layer at full width (d_model 8192,
+    d_inner 16384, N 16): a bf16 prefill of ``seq`` tokens (``reps`` times)
+    and ``decode`` one-token steps from its state; float32 checks of the
+    prefill-then-decode state against the full scan on the card, and of
+    the card against the CPU at ``cpu_seq`` tokens."""
+
+    arch: str = "jamba_1_5_large_398b"
+    batch: int = 1
+    seq: int = 2048
+    decode: int = 16
+    cpu_seq: int = 128
+    reps: int = 3
+    seed: int = 0
+    #: float32 sums in another order over T steps, relative to the largest
+    tol_rel: float = 1e-4
+
+
+def _rel_gap(got, want) -> dict:
+    gap = float((got.float().cpu() - want.float().cpu()).abs().max())
+    big = float(want.float().abs().max())
+    return {"max_abs_gap": gap, "max_abs": big, "rel": gap / big}
+
+
+def phase_mamba(torch, cfg, mcfg: MambaPhaseConfig, device, sync) -> dict:
+    from repro_torch.models import mamba as mamba_mod
+    from repro_torch.models import schema
+    from repro_torch.models.schema import tree_map
+    dev = torch.device(device)
+    di, n = cfg.mamba_expand * cfg.d_model, cfg.mamba_d_state
+    gen = torch.Generator(device=dev).manual_seed(mcfg.seed)
+    sch = mamba_mod.mamba_schema(cfg)
+    p = schema.init(sch, gen, dev)
+    x = torch.randn((mcfg.batch, mcfg.seq + mcfg.decode, cfg.d_model),
+                    generator=gen, device=dev)
+    out = {"arch": cfg.name, "d_model": cfg.d_model, "d_inner": di,
+           "d_state": n, "d_conv": cfg.mamba_d_conv,
+           "dt_rank": max(1, cfg.d_model // 16), "batch": mcfg.batch,
+           "seq": mcfg.seq, "params": schema.count_params(sch),
+           "scan_tensor_bytes": mcfg.batch * mcfg.seq * di * n * 4}
+    xb = x[:, :mcfg.seq].to(torch.bfloat16)
+    with torch.inference_mode():
+        mamba_mod.mamba(p, cfg, xb)
+        sync()
+        cuda = dev.type == "cuda"
+        if cuda:
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+        ms = []
+        for _ in range(mcfg.reps):
+            (_, state), secs = timed(sync, lambda: mamba_mod.mamba(p, cfg,
+                                                                   xb))
+            ms.append(secs * 1e3)
+        if cuda:
+            out["peak_bytes_above_inputs"] = \
+                torch.cuda.max_memory_allocated() - base
+        out["bf16_ms"] = ms
+        out["bf16_ms_median"] = statistics.median(ms)
+        out["tokens_per_s"] = mcfg.batch * mcfg.seq / \
+            statistics.median(ms) * 1e3
+        dec = []
+        for i in range(mcfg.decode):
+            xt = x[:, mcfg.seq + i:mcfg.seq + i + 1].to(torch.bfloat16)
+            (y, state), secs = timed(sync, lambda: mamba_mod.mamba(
+                p, cfg, xt, state=state))
+            dec.append(secs * 1e3)
+        if not bool(torch.isfinite(y.float()).all()):
+            raise AssertionError("mamba decode output not finite")
+        out["decode_ms_per_token"] = dec
+        out["decode_ms_per_token_median"] = statistics.median(dec)
+        del state, y
+        # float32: a prefill of seq - decode tokens and decode one-token
+        # steps against the full scan of seq tokens, on the card
+        p32 = tree_map(lambda a: a.float(), p)
+        del p
+        x32 = x[:, :mcfg.seq]
+        full, fstate = mamba_mod.mamba(p32, cfg, x32)
+        pre = mcfg.seq - mcfg.decode
+        _, state = mamba_mod.mamba(p32, cfg, x32[:, :pre])
+        tail = []
+        for i in range(pre, mcfg.seq):
+            y, state = mamba_mod.mamba(p32, cfg, x32[:, i:i + 1],
+                                       state=state)
+            tail.append(y)
+        check = _rel_gap(torch.cat(tail, 1), full[:, pre:])
+        st = _rel_gap(state["h"], fstate["h"])
+        out["prefill_decode_vs_scan_f32"] = {
+            "prefill": pre, "decode_steps": mcfg.decode, **check,
+            "state_rel": st["rel"]}
+        del full, fstate, state, tail
+        if cuda:
+            torch.cuda.empty_cache()
+        # float32: the card against the CPU at cpu_seq tokens
+        xs = x32[:, :mcfg.cpu_seq]
+        got, _ = mamba_mod.mamba(p32, cfg, xs)
+        want, _ = mamba_mod.mamba(tree_map(lambda a: a.cpu(), p32), cfg,
+                                  xs.cpu())
+        out["card_vs_cpu_f32"] = {"seq": mcfg.cpu_seq,
+                                  **_rel_gap(got, want)}
+    out["tolerance_rel"] = mcfg.tol_rel
+    for name in ("prefill_decode_vs_scan_f32", "card_vs_cpu_f32"):
+        if out[name]["rel"] > mcfg.tol_rel or (
+                out[name].get("state_rel", 0) > mcfg.tol_rel):
+            raise AssertionError(f"mamba {name}: {out[name]}")
+    return out
+
+
+#: the archs the ``train_archs`` phase steps at smoke size
+TRAIN_ARCHS = ("jamba_1_5_large_398b", "xlstm-125m", "whisper-large-v3",
+               "internvl2-1b")
+
+
+def phase_train_archs(torch, dev, sync, seed: int = 0) -> dict:
+    """``lm_loss`` and one float32 train step (2 microbatches) of each of
+    ``TRAIN_ARCHS`` at smoke size, on the card and on the CPU from the same
+    weights and batch (tokens, and the launcher's stub front-end input):
+    finite losses and grad norms, and whether the loss, grad norm and
+    updated master are within ``CARD_CPU_TOL`` (``within_tolerance``,
+    checked by ``main``; an MoE model's loss is held only where no routed
+    entry differs)."""
+    from repro_torch.configs import smoke_config
+    from repro_torch.launch.train import frontend_batch
+    from repro_torch.models import lm_loss, schema
+    from repro_torch.models.schema import tree_map
+    from repro_torch.models.transformer import model_schema
+    from repro_torch.train import OptConfig, make_train_step, opt_init
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError("TF32 matmuls are on")
+    dev = torch.device(dev)
+    ocfg = OptConfig(lr=1e-3, warmup_steps=2, total_steps=6)
+    out = {}
+    for arch in TRAIN_ARCHS:
+        cfg = smoke_config(arch)
+        gen = torch.Generator().manual_seed(seed)
+        weights = tree_map(lambda a: a.float(),
+                           schema.init(model_schema(cfg), gen, "cpu"))
+        toks = torch.randint(0, cfg.vocab, (4, 33), generator=gen)
+        batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:],
+                 **{k: v.float() for k, v in
+                    frontend_batch(cfg, 4, seed).items()}}
+        moe = cfg.moe_experts > 0
+        step = make_train_step(cfg, ocfg, microbatches=2, collect_moe=moe)
+        runs = {}
+        for name, d in (("card", dev), ("cpu", torch.device("cpu"))):
+            p = tree_map(lambda a: a.to(d, copy=True), weights)
+            b = {k: v.to(d) for k, v in batch.items()}
+            with torch.no_grad():
+                loss = float(lm_loss(p, cfg, b))
+            (p, st, m), secs = timed(sync, lambda: step(p, opt_init(p), b))
+            runs[name] = (loss, tree_map(lambda a: a.cpu(), st["master"]),
+                          {k: v.cpu() for k, v in m.items()}, secs)
+        (la, master_a, ma, sa), (lb, master_b, mb, sb) = runs["card"], \
+            runs["cpu"]
+        moved = ([] if not moe else
+                 ((ma["expert_load"] - mb["expert_load"]).abs().sum(-1) / 2)
+                 .reshape(-1).tolist())
+        vals = [la, lb, float(ma["loss"]), float(mb["loss"]),
+                float(ma["grad_norm"]), float(mb["grad_norm"])]
+        if not np.all(np.isfinite(vals)):
+            raise AssertionError(f"{arch}: a loss or grad norm is not "
+                                 f"finite: {vals}")
+        gap = _tree_gap(torch, master_a, master_b)
+        rel = CARD_CPU_TOL["loss_rtol"]
+        out[cfg.name] = {
+            "n_layers": cfg.n_layers, "batch": [4, 32], "dtype": "float32",
+            "lm_loss": [la, lb], "step_loss": vals[2:4],
+            "grad_norm": vals[4:6],
+            "routed_entries_differing_per_layer": moved,
+            "loss_held": not any(moved), "master_max_abs_gap": gap,
+            "card_s": sa, "cpu_s": sb,
+            "within_tolerance": {
+                "loss": bool(any(moved) or (
+                    abs(la - lb) <= rel * abs(lb)
+                    and abs(vals[2] - vals[3]) <= rel * abs(vals[3]))),
+                "grad_norm": abs(vals[4] - vals[5])
+                <= CARD_CPU_TOL["grad_norm_rtol"] * abs(vals[5]),
+                "master": gap <= CARD_CPU_TOL["master_atol_lr"] * ocfg.lr}}
+    return {"smoke_card_vs_cpu": out, "tolerance": CARD_CPU_TOL}
+
+
 def main() -> int:
     try:
         import torch
@@ -2711,6 +3116,79 @@ def main() -> int:
         raise AssertionError(f"the card's train step is off the CPU's: "
                              f"{train['card_vs_cpu']}")
 
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    large, (tk, td, domain), large_launches = phase_large_table(
+        cfg, LargeTableConfig(), "cuda", sync)
+    if large_launches == 0:
+        raise AssertionError("the large-table stage never launched the "
+                             "routing kernel")
+    timer = Timer(torch, cfg.reps)
+    rows.append(routing_row(
+        timer, "routing_lookup[dense,large_table]",
+        torch.arange(domain + 1, dtype=torch.int32, device="cuda"),
+        RoutingTable.from_arrays(tk, td, torch.device("cuda")), cfg))
+    del timer
+    emit({"phase": "large_table", **large,
+          "launches": {"route_keys": large_launches},
+          "kernel_rows": rows[-1:], "card": nvidia_smi_line(),
+          "seconds": time.perf_counter() - t0})
+
+    arch_flash = {}
+    for acfg in ARCH_SERVES:
+        t0 = time.perf_counter()
+        torch.cuda.empty_cache()
+        res = phase_serve_arch(torch, get_config(acfg.arch), acfg, "cuda",
+                               sync)
+        n_attn, got = res["attention_layers"], res["launches"]
+        if (got["cache_free_flash"] != n_attn or res["flash_calls"]
+                != ({"0": n_attn} if n_attn else {})):
+            raise AssertionError(f"{acfg.arch}: the cache-free step did not "
+                                 f"launch the flash kernel once per decoder "
+                                 f"attention layer ({n_attn}): {got}, "
+                                 f"{res['flash_calls']}")
+        if got["cache_free_plain"] or got["cached"]:
+            raise AssertionError(f"{acfg.arch}: a path without flash "
+                                 f"launched it: {got}")
+        arch_flash[acfg.arch] = got["cache_free_flash"]
+        emit({"phase": "serve_arch", **res, "card": nvidia_smi_line(),
+              "seconds": time.perf_counter() - t0})
+    t0 = time.perf_counter()
+    timer = Timer(torch, cfg.reps)
+    edge = check_flash_edges(torch, torch.device("cuda"))
+    for acfg in ARCH_SERVES[:2]:
+        mc = get_config(acfg.arch)
+        t = acfg.prompt + (mc.prefix_len if mc.frontend == "vision_stub"
+                           else 0)
+        rows.append(flash_row(torch, timer, f"flash_attention[global,"
+                              f"{acfg.arch}]", mc, acfg.batch, t, 0,
+                              acfg.seed, torch.device("cuda"), edge))
+    del timer
+    emit({"phase": "arch_flash_rows", "kernel_rows": rows[-2:],
+          "seconds": time.perf_counter() - t0})
+
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    mamba_cfg = MambaPhaseConfig()
+    flash_attention.launches = 0
+    mamba = phase_mamba(torch, get_config(mamba_cfg.arch), mamba_cfg, "cuda",
+                        sync)
+    emit({"phase": "mamba", **mamba,
+          "launches": {"flash_attention": flash_attention.launches},
+          "card": nvidia_smi_line(), "seconds": time.perf_counter() - t0})
+
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    train_archs = phase_train_archs(torch, torch.device("cuda"), sync)
+    emit({"phase": "train_archs", **train_archs, "card": nvidia_smi_line(),
+          "seconds": time.perf_counter() - t0})
+    off = {a: r["within_tolerance"]
+           for a, r in train_archs["smoke_card_vs_cpu"].items()
+           if not all(r["within_tolerance"].values())}
+    if off:
+        raise AssertionError(f"a smoke train step on the card is off the "
+                             f"CPU's: {off}")
+
     launches = {"routing_lookup[dense]": main_launches["route_keys"],
                 "routing_lookup[dense,sketch]": sketch_launches,
                 "routing_lookup[dense,topology]":
@@ -2730,7 +3208,10 @@ def main() -> int:
                    else "flash_attention[global]": n
                    for w, n in serve["flash_calls"].items()},
                 f"flash_attention[global,D={serve_moe['head_dim']}]":
-                    moe_launches["cache_free_flash"]}
+                    moe_launches["cache_free_flash"],
+                "routing_lookup[dense,large_table]": large_launches,
+                **{f"flash_attention[global,{a}]": n
+                   for a, n in arch_flash.items() if n}}
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     emit({"kernels": [{k: {**row, "launches": launches[row["name"]]}[k]

@@ -1,34 +1,25 @@
-"""Architecture registry of the port: the JAX package's ``configs`` for the
-archs whose layer kinds the port has (attention followed by a dense SwiGLU
-or an MoE MLP).
+"""Architecture registry of the port: the JAX package's ``configs``, one
+module per arch with its exact public config.
 
 ``get_config`` gives the exact public config, ``smoke_config`` the reduced
-variant of the same family that the CPU tests and the smoke CLI run. The
-JAX package's other archs need layer kinds the port does not have yet and
-raise ``NotImplementedError`` naming the ROADMAP item that brings them.
+variant of the same family that the CPU tests and the smoke CLI run.
 """
 
 import importlib
 
-ARCHS = ["gemma3_12b", "qwen2_7b", "granite_moe_3b_a800m", "dbrx_132b",
-         "granite_8b", "granite_20b"]
+ARCHS = ["jamba_1_5_large_398b", "internvl2_1b", "dbrx_132b",
+         "granite_moe_3b_a800m", "granite_20b", "granite_8b", "gemma3_12b",
+         "qwen2_7b", "xlstm_125m", "whisper_large_v3"]
 
-#: the JAX package's other archs, and the ROADMAP item each waits for
-NOT_PORTED = {
-    "jamba_1_5_large_398b": "Queue A item 4: mamba layers",
-    "internvl2_1b": "Queue A item 4: the vision prefix",
-    "xlstm_125m": "Queue A item 4: sLSTM and mLSTM layers",
-    "whisper_large_v3": "Queue A item 4: the whisper encoder",
-}
+#: the JAX package's archs that the port does not have (none since the
+#: recurrent layers, the whisper encoder and the vision prefix came)
+NOT_PORTED: dict = {}
 
-ALIASES = {a.replace("_", "-"): a for a in [*ARCHS, *NOT_PORTED]}
+ALIASES = {a.replace("_", "-"): a for a in ARCHS}
 
 
 def _module(name: str):
     mod_name = ALIASES.get(name, name).replace("-", "_")
-    if mod_name in NOT_PORTED:
-        raise NotImplementedError(f"{name} is not ported yet (ROADMAP "
-                                  f"{NOT_PORTED[mod_name]})")
     if mod_name not in ARCHS:
         raise KeyError(f"unknown arch {name!r}")
     return importlib.import_module(f"{__name__}.{mod_name}")

@@ -47,7 +47,9 @@ later tuple as it would have there.
 
 :func:`load_reference_params` carries a model's weights across: a nested
 dict of numpy arrays (``np.asarray`` of each leaf of a JAX parameter
-pytree) becomes the same tree of torch tensors.
+pytree) becomes the same tree of torch tensors, in one call for any of the
+ten archs (whisper's ``encoder`` tree included; float32 leaves, such as
+mamba's ``a_log`` and the mLSTM's gates, stay float32).
 :func:`load_reference_opt_state` does the same for the JAX package's AdamW
 state (``opt_init`` / ``opt_update``), so a run can continue in the port
 where it stopped there.

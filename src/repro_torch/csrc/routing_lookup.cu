@@ -4,12 +4,12 @@
 // Replaces: the Pallas kernel _routing_kernel in
 //   src/repro/kernels/routing_lookup.py (public routing_lookup).
 //
-// What bounds it on an H100: bytes. Each key is read once (4 B) and each
-// dest written once (4 B); the table (at most 192 KB) is small beside them
-// at the main path's N. The least time is 8 N bytes / 3.35 TB/s: 2.5 us at
-// the dense N = 2^20 + 1, 10 us at N = 4M tuples. The arithmetic (two 32-bit
-// mixes, a modulo and about one table probe per key) is far below the
-// card's integer rate.
+// What bounds it on an H100: bytes. Each key is read once (4 B) and each dest
+// written once (4 B); the table (at most 192 KB up to 16,384 slots) is small
+// beside them at the main path's N. The least time is 8 N bytes / 3.35 TB/s:
+// 2.5 us at the dense N = 2^20 + 1, 10 us at N = 4M tuples. The arithmetic
+// (two 32-bit mixes, a modulo and about one table probe per key) is far below
+// the card's integer rate.
 //
 // Design. The TPU kernel pins the whole table in VMEM and compares every key
 // against every slot (a BN x A match with an integer-max reduce), because the
@@ -29,14 +29,17 @@
 //     buckets between a key's home and its own are full. A lookup therefore
 //     stops at its key, at the first bucket with an empty slot (a miss), or
 //     after max_probe buckets (the longest chain, recorded by the builder).
-//     The builder gives each key 4 home buckets (8 slots) as far as the
-//     192 KB allow, so most keys resolve in one probe, and most warps too:
-//     a warp waits for its slowest lane.
+//     RoutingTable gives each key 4 home buckets (8 slots), within 192 KB
+//     for a table of up to 16,384 slots and without a cap past that (the
+//     reference's table has no bound either), so most keys resolve in one
+//     probe, and most warps too: a warp waits for its slowest lane. The
+//     bucket index is 32-bit, the only bound on a table's size.
 // One persistent block per SM probes the table where it lies, through the
-// read-only cache (at most 192 KB: it stays in L2, and what a block touches
-// in L1). Staging the whole table into each block's shared memory with one
-// cp.async.bulk under an mbarrier was measured too: no faster per tuple and
-// slower on the dense domain, where a block routes only ~8K keys and waits
+// read-only cache (192 KB up to 16,384 slots: it stays in L2, and what a block
+// touches in L1; a larger table is read the same way, 64 KB for each 1,024
+// distinct keys). Staging the whole table into each block's shared memory with
+// one cp.async.bulk under an mbarrier was measured too: no faster per tuple
+// and slower on the dense domain, where a block routes only ~8K keys and waits
 // for all of the table first (PERF.md). Keys are read and dests written as
 // int4 with streaming cache hints; a base pointer off the 16-byte grid is
 // handled by up to 3 scalar keys before the vectors and 3 after (the wrapper
@@ -49,8 +52,6 @@
 namespace {
 
 constexpr int kThreads = 1024;
-// largest table in buckets: 192 KB
-constexpr int kMaxBuckets = 12288;
 
 __device__ __forceinline__ uint32_t fmix32(uint32_t h) {
   h ^= h >> 16;
@@ -139,7 +140,7 @@ extern "C" int routing_lookup_launch(const void* keys, int64_t n, int head,
                                      int grid, void* stream) {
   const uintptr_t k = reinterpret_cast<uintptr_t>(keys);
   const uintptr_t o = reinterpret_cast<uintptr_t>(out);
-  if (n_buckets < 1 || n_buckets > kMaxBuckets || n_home < 1 ||
+  if (n_buckets < 1 || n_home < 1 ||
       n_home > n_buckets || max_probe < 0 || n_dest < 1 || grid < 1 ||
       head < 0 || head > 3 || head > n || (k - o) % 16 != 0 ||
       (head < n && (k + 4 * static_cast<uintptr_t>(head)) % 16 != 0) ||

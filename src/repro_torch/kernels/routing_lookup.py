@@ -52,18 +52,21 @@ import torch
 from . import _build
 from .ref import fmix32
 
-#: largest table in caller slots
+#: largest table in caller slots that keeps the compact layout below
 MAX_TABLE = 16384
-#: largest table in buckets of two slots: 192 KB, small beside the key
-#: streams and the 50 MB L2 it is read from
+#: buckets of two slots a table of at most MAX_TABLE slots may take: 192 KB,
+#: small beside the key streams and the 50 MB L2 it is read from
 MAX_BUCKETS = 12288
-#: home buckets per distinct key, up to MAX_BUCKETS: a quarter-full table,
-#: so a lookup seldom reads a second bucket (a warp waits for its slowest
-#: lane)
+#: home buckets per distinct key, up to MAX_BUCKETS - _OVERFLOW_BUCKETS for a
+#: table of at most MAX_TABLE slots, without a cap past it: a quarter-full
+#: table, so a lookup seldom reads a second bucket (a warp waits for its
+#: slowest lane)
 _BUCKETS_PER_KEY = 4
 #: buckets kept free of home positions for the chain that runs past the last
 #: home bucket, and the one empty bucket that ends every chain
 _OVERFLOW_BUCKETS = 64
+#: the kernel indexes buckets with int32: the only bound on a table's size
+_INT32_BUCKETS = 2**31 - 1
 #: the slot hash's salt, fmix32(k ^ _SALT): a mix of its own, so one table
 #: serves every routing seed
 _SALT = 0x9E3779B9
@@ -133,8 +136,12 @@ class RoutingTable:
     ``RoutingTable(table_keys, table_dests)`` takes two int32 tensors of one
     shape (-1 = empty slot) and builds on the host (a tensor on the card is
     copied back first); :meth:`from_arrays` builds from numpy without a host
-    sync. Raises ``ValueError`` on duplicate non-negative keys, negative
-    dests or more than :data:`MAX_TABLE` slots.
+    sync. Raises ``ValueError`` on duplicate non-negative keys or negative
+    dests.
+
+    A table of at most :data:`MAX_TABLE` slots takes at most
+    :data:`MAX_BUCKETS` buckets (192 KB); a larger one grows with its keys,
+    4 home buckets each, bounded only by the kernel's int32 bucket index.
 
     Attributes: ``buckets``, the ``(n_buckets, 4)`` int32 table
     ``{key0, dest0, key1, dest1}`` (dest -1 = empty slot) on :attr:`device`;
@@ -173,9 +180,6 @@ class RoutingTable:
         return cls.build(table_keys, table_dests).to(device)
 
     def _build(self, tk: np.ndarray, td: np.ndarray) -> None:
-        if tk.size > MAX_TABLE:
-            raise ValueError(f"routing table of {tk.size} slots exceeds "
-                             f"MAX_TABLE={MAX_TABLE}")
         if tk.size and int(td.min()) < 0:
             raise ValueError("routing table dests must be >= 0 (the table "
                              "marks its empty slots by dest -1)")
@@ -192,8 +196,10 @@ class RoutingTable:
         self.slots = int(tk.size)
         keys = ordered[first]
         self.keys, self.dests = keys, td[order[first]]
+        compact = tk.size <= MAX_TABLE
+        cap = MAX_BUCKETS if compact else _INT32_BUCKETS
         self.n_home = max(1, min(_BUCKETS_PER_KEY * keys.size,
-                                 MAX_BUCKETS - _OVERFLOW_BUCKETS))
+                                 cap - _OVERFLOW_BUCKETS))
         self.salt = _SALT
         if keys.size:
             order, slot, self.max_probe = _place(
@@ -203,8 +209,8 @@ class RoutingTable:
         # one empty bucket past the last full one ends every chain
         n_buckets = max(self.n_home, int(slot[-1]) // 2 + 1 if slot.size
                         else 0) + 1
-        if n_buckets > MAX_BUCKETS:
-            raise ValueError(f"routing table overflows {MAX_BUCKETS} buckets")
+        if n_buckets > cap:
+            raise ValueError(f"routing table overflows {cap} buckets")
         flat = np.zeros(4 * n_buckets, np.int32)
         flat[1::2] = -1
         flat[2 * slot] = keys[order]

@@ -8,10 +8,15 @@ placer per layer, and every step takes their placements.
       --device cpu --tokens 8
   PYTHONPATH=src python -m repro_torch.launch.serve \\
       --arch granite-moe-3b-a800m --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.serve \\
+      --arch whisper-large-v3 --device cpu
 
 The CLI runs the arch's smoke config, as the JAX launcher does; callers
-with a card pass a full config to :func:`serve_local`. The JAX launcher's
-``--mode lower`` (XLA lowering for a TPU mesh) is not ported.
+with a card pass a full config to :func:`serve_local`. An audio arch
+(whisper) gets random stub frames, encoded once for the prefill and all
+decode steps; a vision arch (internvl2) a random prefix of pixel
+embeddings, which the cache and the decode index make room for. The JAX
+launcher's ``--mode lower`` (XLA lowering for a TPU mesh) is not ported.
 """
 
 from __future__ import annotations
@@ -24,6 +29,7 @@ import torch
 
 from ..configs import smoke_config
 from ..models import init_cache, model_schema, schema
+from ..models.transformer import encode
 from ..models.config import ModelConfig
 from ..models.skewshield import SkewShieldPlacer, placements_array
 from ..streams.device import resolve_device
@@ -38,6 +44,22 @@ def init_request(cfg: ModelConfig, batch: int, prompt: int, device,
     tokens = torch.randint(0, cfg.vocab, (batch, prompt), generator=generator,
                            device=device)
     return params, tokens
+
+
+def frontend_inputs(cfg: ModelConfig, batch: int, device,
+                    generator: torch.Generator) -> dict:
+    """The arch's stub front-end input, standard normal in bfloat16 from
+    ``generator``: {"frames": (batch, encoder_seq, D)} for an audio arch,
+    {"pixel_embeds": (batch, prefix_len, D)} for a vision arch, else {}
+    (the JAX launcher's inputs)."""
+    shape = {"audio_stub": ("frames", cfg.encoder_seq),
+             "vision_stub": ("pixel_embeds", cfg.prefix_len)}.get(
+                 cfg.frontend)
+    if shape is None:
+        return {}
+    name, n = shape
+    return {name: torch.randn((batch, n, cfg.d_model), generator=generator,
+                              device=device).to(torch.bfloat16)}
 
 
 def moe_placers(cfg: ModelConfig) -> List[SkewShieldPlacer]:
@@ -65,7 +87,9 @@ def serve_local(cfg: ModelConfig, batch: int = 2, prompt: int = 16,
     them).
 
     Weights and prompt come from :func:`init_request` with ``generator``
-    (seed 0 on the device when None). ``device=None`` means the CUDA card
+    (seed 0 on the device when None), then the front-end input from
+    :func:`frontend_inputs`; whisper's frames are encoded once and every
+    step takes the ``encoder_out``. ``device=None`` means the CUDA card
     and raises without one. Returns the prefill's next-token logits
     (batch, 1, vocab_padded) and the greedy tokens (batch, tokens) int64.
     """
@@ -73,19 +97,27 @@ def serve_local(cfg: ModelConfig, batch: int = 2, prompt: int = 16,
     if generator is None:
         generator = torch.Generator(device=dev).manual_seed(0)
     params, prompt_tokens = init_request(cfg, batch, prompt, dev, generator)
+    front = frontend_inputs(cfg, batch, dev, generator)
+    if "frames" in front:
+        with torch.inference_mode():
+            front = {"encoder_out": encode(params, cfg, front["frames"])}
+    prefix = cfg.prefix_len if "pixel_embeds" in front else 0
     serve_step = make_serve_step(cfg)
     placers = moe_placers(cfg)
     placements = placements_array(placers, dev) if placers else None
-    cache = init_cache(cfg, batch, prompt + tokens, dev)
-    logits, cache = serve_step(params, cache, {"tokens": prompt_tokens}, 0,
+    cache = init_cache(cfg, batch, prefix + prompt + tokens, dev)
+    logits, cache = serve_step(params, cache,
+                               {"tokens": prompt_tokens, **front}, 0,
                                placements)
     first = logits
-    idx = prompt
+    step_batch = {k: v for k, v in front.items() if k == "encoder_out"}
+    idx = prefix + prompt
     outs = []
     for _ in range(tokens):
         nxt = torch.argmax(logits[:, -1], dim=-1)[:, None]
         outs.append(nxt[:, 0].cpu().numpy())
-        logits, cache = serve_step(params, cache, {"tokens": nxt}, idx,
+        logits, cache = serve_step(params, cache,
+                                   {"tokens": nxt, **step_batch}, idx,
                                    placements)
         idx += 1
     greedy = np.stack(outs, 1) if outs else np.zeros((batch, 0), np.int64)

@@ -17,12 +17,27 @@ from __future__ import annotations
 
 import argparse
 
+import numpy as np
 import torch
 
 from ..configs import smoke_config
 from ..data.pipeline import KeyedDataPipeline, zipf_sources
 from ..train.optimizer import OptConfig
 from ..train.trainer import Trainer, TrainerConfig
+
+
+def frontend_batch(cfg, batch: int, step: int) -> dict:
+    """The step's stub front-end input, as the JAX launcher draws it:
+    standard normal from ``np.random.default_rng(step)`` in bfloat16,
+    ``pixel_embeds`` (batch, prefix_len, D) for a vision arch, ``frames``
+    (batch, encoder_seq, D) for an audio arch, else {}."""
+    name, n = {"vision_stub": ("pixel_embeds", cfg.prefix_len),
+               "audio_stub": ("frames", cfg.encoder_seq)}.get(
+                   cfg.frontend, (None, 0))
+    if name is None:
+        return {}
+    a = np.random.default_rng(step).standard_normal((batch, n, cfg.d_model))
+    return {name: torch.from_numpy(a).to(torch.bfloat16)}
 
 
 def main(argv=None) -> None:
@@ -47,7 +62,9 @@ def main(argv=None) -> None:
             pipe.run_interval(n_docs=32)
             b = pipe.worker_batch(0, args.batch)
             if b is not None:
-                return {k: torch.from_numpy(v) for k, v in b.items()}
+                out = {k: torch.from_numpy(v) for k, v in b.items()}
+                out.update(frontend_batch(cfg, args.batch, step))
+                return out
 
     tcfg = TrainerConfig(total_steps=args.steps, checkpoint_every=10,
                          microbatches=args.microbatches,

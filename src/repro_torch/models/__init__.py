@@ -1,6 +1,7 @@
-"""Model substrate of the port: attention LMs with dense or MoE MLPs and
-SkewShield expert placement and the training loss (the JAX package's
-``repro.models``, for the layer kinds ported so far)."""
+"""Model substrate of the port: the JAX package's ``repro.models`` — LMs of
+attention, mamba, sLSTM and mLSTM layers with dense or MoE MLPs, the
+whisper encoder with cross-attention, the vision prefix, SkewShield expert
+placement and the training loss."""
 
 from . import schema
 from .config import SHAPES, ModelConfig, ShapeConfig

@@ -106,25 +106,32 @@ def _xla_attention(q, k, v, *, causal: bool, window: int, q_positions,
 def attn(p, cfg: ModelConfig, x: torch.Tensor, positions: torch.Tensor,
          window: int = 0, causal: bool = True,
          cache: Optional[dict] = None, cache_index: int = 0,
+         kv_source: Optional[torch.Tensor] = None, use_rope: bool = True,
          use_flash: bool = False
          ) -> Tuple[torch.Tensor, Optional[dict]]:
-    """Self-attention over ``x`` (B, T, D) at ``positions``.
+    """Self- or cross-attention over ``x`` (B, T, D) at ``positions``.
 
     cache: {"k": (B, S_max, Hkv*Dh), "v": ...} — the step writes its K/V at
     ``cache_index`` (in place) and attends over ``[0, cache_index + T)``
     through the plain path. Without a cache, ``use_flash`` sends causal
-    attention to the flash kernel. The JAX package's cross-attention
-    (``kv_source``) comes with the whisper encoder.
+    self-attention to the flash kernel. ``kv_source`` (B, S, D), the
+    encoder output, makes it cross-attention: K and V come from it, with no
+    RoPE and no cache, and never through the flash kernel (the JAX
+    package's rule); the caller passes ``causal=False``.
     """
     hq, hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.hd
     b, t, _ = x.shape
+    src = x if kv_source is None else kv_source
     q = dot(x, p["wq"])
-    k = dot(x, p["wk"])
-    v = dot(x, p["wv"])
+    k = dot(src, p["wk"])
+    v = dot(src, p["wv"])
     if "bq" in p:
         q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
-    qh = rope(_split_heads(q, hq, dh), positions, cfg.rope_theta)
-    kh = rope(_split_heads(k, hkv, dh), positions, cfg.rope_theta)
+    qh = _split_heads(q, hq, dh)
+    kh = _split_heads(k, hkv, dh)
+    if use_rope and kv_source is None:
+        qh = rope(qh, positions, cfg.rope_theta)
+        kh = rope(kh, positions, cfg.rope_theta)
     qt = qh.transpose(1, 2)
 
     new_cache = None
@@ -140,7 +147,7 @@ def attn(p, cfg: ModelConfig, x: torch.Tensor, positions: torch.Tensor,
     else:
         k_full = kh.transpose(1, 2)
         v_full = _split_heads(v, hkv, dh).transpose(1, 2)
-        if use_flash and causal:
+        if use_flash and causal and kv_source is None:
             out = flash_attention(qt, k_full, v_full, causal=True,
                                   window=window)
         else:

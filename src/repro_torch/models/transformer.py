@@ -1,15 +1,22 @@
-"""Decoder-only LM assembler — the JAX package's ``models/transformer.py``
-for the layer kinds the port has: attention followed by a dense SwiGLU MLP
-or an MoE MLP (``models/moe.py``, with SkewShield expert placements).
+"""Composable LM assembler for all ten archs — the JAX package's
+``models/transformer.py``.
 
 Layers are grouped into *superblocks* of ``cfg.layer_pattern`` length with
 stacked parameters (leading ``n_groups`` dim), as in the JAX package, so a
 parameter tree converts one-to-one; the JAX package's ``lax.scan`` over the
 groups is a Python loop here, over ``unbind`` views of the stacked leaves
 (so autograd hands each stacked leaf one gradient, the stack of its
-groups'). The same forward serves training and a cache-free step
-(cache=None), prefill (cache + index 0, T = prompt) and decode (cache +
-index t, T = 1).
+groups'). Layer kinds inside a superblock: attn | mamba | slstm | mlstm,
+each optionally followed by cross-attention to an encoder output (whisper)
+and by a dense or MoE MLP. The same forward serves training and a
+cache-free step (cache=None), prefill (cache + index 0, T = prompt) and
+decode (cache + index t, T = 1); a step with a cache updates it in place
+(the attention K/V planes and the recurrent layers' states alike).
+
+Front ends: ``encode`` is the whisper encoder over stub frame embeddings
+(sinusoidal positions, non-causal plain attention); a vision prefix
+(``pixel_embeds``) is prepended to the token embeddings, and
+:func:`lm_loss` drops it before the loss.
 
 Training: :func:`lm_loss` is the next-token cross-entropy with the logits
 made one sequence chunk at a time. ``remat`` recomputes each superblock in
@@ -17,13 +24,11 @@ the backward pass, keeping only the outputs of the plain 2-D products
 (``aten.mm``/``aten.addmm``): the JAX package's ``jax.checkpoint`` with
 ``dots_with_no_batch_dims_saveable``, so the experts' batched products
 (``bmm``) are recomputed, as there.
-
-mamba, sLSTM and mLSTM layers, the whisper encoder and the vision prefix
-raise ``NotImplementedError`` until their slices.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import functools
 from typing import Any, Dict, Optional
 
@@ -33,28 +38,33 @@ from torch.utils.checkpoint import (checkpoint,
 
 from . import attention as attn_mod
 from . import layers
+from . import mamba as mamba_mod
 from . import moe as moe_mod
+from . import xlstm as xlstm_mod
 from .config import ModelConfig
 from .schema import ParamSpec, tree_map
 
 PyTree = Any
 
 
-def _check_ported(cfg: ModelConfig) -> None:
-    missing = sorted({k for k in cfg.layer_pattern if k != "attn"})
-    if cfg.encoder_layers or cfg.frontend != "none":
-        missing.append(f"frontend {cfg.frontend}")
-    if missing:
-        raise NotImplementedError(
-            f"{cfg.name}: {', '.join(missing)} not ported yet (ROADMAP "
-            "Queue A item 4)")
-
-
 # ------------------------------------------------------------------ schema --
-def _sub_schema(cfg: ModelConfig, j: int, n_groups: int):
+def _sub_schema(cfg: ModelConfig, j: int, n_groups: int, cross: bool):
+    kind = cfg.layer_pattern[j]
     stack = (n_groups,)
-    sch: Dict[str, Any] = {"norm": layers.rmsnorm_schema(cfg.d_model, stack),
-                           "attn": attn_mod.attn_schema(cfg, stack)}
+    sch: Dict[str, Any] = {"norm": layers.rmsnorm_schema(cfg.d_model, stack)}
+    if kind == "attn":
+        sch["attn"] = attn_mod.attn_schema(cfg, stack)
+    elif kind == "mamba":
+        sch["mamba"] = mamba_mod.mamba_schema(cfg, stack)
+    elif kind == "slstm":
+        sch["cell"] = xlstm_mod.slstm_schema(cfg, stack)
+    elif kind == "mlstm":
+        sch["cell"] = xlstm_mod.mlstm_schema(cfg, stack)
+    else:
+        raise ValueError(kind)
+    if cross:
+        sch["cross_norm"] = layers.rmsnorm_schema(cfg.d_model, stack)
+        sch["cross"] = attn_mod.attn_schema(cfg, stack, cross=True)
     if cfg.d_ff > 0:
         sch["mlp_norm"] = layers.rmsnorm_schema(cfg.d_model, stack)
         if cfg.layer_is_moe(j):
@@ -64,33 +74,78 @@ def _sub_schema(cfg: ModelConfig, j: int, n_groups: int):
     return sch
 
 
+def _encoder_cfg(cfg: ModelConfig) -> ModelConfig:
+    return dataclasses.replace(
+        cfg, n_layers=cfg.encoder_layers, layer_pattern=("attn",),
+        window_pattern=(0,), moe_experts=0, qkv_bias=False)
+
+
 def model_schema(cfg: ModelConfig) -> PyTree:
     cfg.validate()
-    _check_ported(cfg)
     period = cfg.pattern_period
     n_groups = cfg.n_layers // period
+    cross = cfg.encoder_layers > 0
     sch: Dict[str, Any] = {
         "embed": layers.embed_schema(cfg),
         "final_norm": layers.rmsnorm_schema(cfg.d_model),
-        "groups": {f"sub{j}": _sub_schema(cfg, j, n_groups)
+        "groups": {f"sub{j}": _sub_schema(cfg, j, n_groups, cross)
                    for j in range(period)},
     }
     if not cfg.tie_embeddings:
         sch["unembed"] = layers.unembed_schema(cfg)
+    if cross:
+        ecfg = _encoder_cfg(cfg)
+        sch["encoder"] = {
+            "groups": {"sub0": _sub_schema(ecfg, 0, ecfg.n_layers, False)},
+            "final_norm": layers.rmsnorm_schema(cfg.d_model),
+        }
     return sch
 
 
 # ------------------------------------------------------------------- cache --
 def cache_schema(cfg: ModelConfig, batch: int, max_seq: int) -> PyTree:
-    """Decode-state tree as ParamSpecs: per attention sub-layer, stacked
-    (n_groups, B, S_max, Hkv*Dh) K and V planes."""
-    _check_ported(cfg)
-    n_groups = cfg.n_layers // cfg.pattern_period
-    shape = (n_groups, batch, max_seq, cfg.n_kv_heads * cfg.hd)
-    axes = ("stack", "batch", "kv_seq", "kv_flat")
-    return {f"sub{j}": {"k": ParamSpec(shape, axes, init="zeros"),
-                        "v": ParamSpec(shape, axes, init="zeros")}
-            for j in range(cfg.pattern_period)}
+    """Decode-state tree as ParamSpecs, per sub-layer stacked over the
+    n_groups: (B, S_max, Hkv*Dh) K and V planes for attention; the state
+    ``h`` (float32) and the conv tail for mamba; ``c``, ``n``, ``m``, ``h``
+    (float32) for the sLSTM; ``C``, ``n``, ``m`` (float32) for the mLSTM.
+    All zeros, the sLSTM's stabilizer ``m`` included (the JAX package's
+    cache; a cache-free sLSTM starts it at -1e30)."""
+    period = cfg.pattern_period
+    st = (cfg.n_layers // period,)
+    d, hkv, dh = cfg.d_model, cfg.n_kv_heads, cfg.hd
+    di = cfg.mamba_expand * d
+    h_heads = cfg.n_heads
+    dhead = d // max(h_heads, 1)
+    z = dict(init="zeros", dtype=torch.float32)
+    out = {}
+    for j in range(period):
+        kind = cfg.layer_pattern[j]
+        if kind == "attn":
+            shape = st + (batch, max_seq, hkv * dh)
+            axes = ("stack", "batch", "kv_seq", "kv_flat")
+            out[f"sub{j}"] = {"k": ParamSpec(shape, axes, init="zeros"),
+                              "v": ParamSpec(shape, axes, init="zeros")}
+        elif kind == "mamba":
+            out[f"sub{j}"] = {
+                "h": ParamSpec(st + (batch, di, cfg.mamba_d_state),
+                               ("stack", "batch", "mamba_inner", None), **z),
+                "conv": ParamSpec(st + (batch, cfg.mamba_d_conv - 1, di),
+                                  ("stack", "batch", None, "mamba_inner"),
+                                  init="zeros"),
+            }
+        elif kind == "slstm":
+            axes = ("stack", "batch", "embed")
+            out[f"sub{j}"] = {name: ParamSpec(st + (batch, d), axes, **z)
+                              for name in ("c", "n", "m", "h")}
+        elif kind == "mlstm":
+            out[f"sub{j}"] = {
+                "C": ParamSpec(st + (batch, h_heads, dhead, dhead),
+                               ("stack", "batch", "heads", None, None), **z),
+                "n": ParamSpec(st + (batch, h_heads, dhead),
+                               ("stack", "batch", "heads", None), **z),
+                "m": ParamSpec(st + (batch, 1), ("stack", "batch", None), **z),
+            }
+    return out
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_seq: int,
@@ -102,14 +157,32 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int,
 
 # ----------------------------------------------------------------- forward --
 def _apply_sub(p, cfg: ModelConfig, j: int, x, positions, cache, cache_index,
-               placement, use_flash: bool, collect_moe: bool):
-    """One sub-layer; returns (x, the expert loads or None)."""
+               encoder_out, placement, use_flash: bool, collect_moe: bool):
+    """One sub-layer; returns (x, the expert loads or None). A recurrent
+    sub-layer with a cache writes its new state into the cache in place."""
+    kind = cfg.layer_pattern[j]
     h = layers.rmsnorm(p["norm"], x, cfg.norm_eps)
-    out, _ = attn_mod.attn(
-        p["attn"], cfg, h, positions, window=cfg.layer_window(j),
-        causal=True, cache=cache, cache_index=cache_index,
-        use_flash=use_flash)
+    if kind == "attn":
+        out, _ = attn_mod.attn(
+            p["attn"], cfg, h, positions, window=cfg.layer_window(j),
+            causal=True, cache=cache, cache_index=cache_index,
+            use_flash=use_flash)
+    else:
+        if kind == "mamba":
+            out, state = mamba_mod.mamba(p["mamba"], cfg, h, state=cache)
+        elif kind == "slstm":
+            out, state = xlstm_mod.slstm(p["cell"], cfg, h, state=cache)
+        else:
+            out, state = xlstm_mod.mlstm(p["cell"], cfg, h, state=cache)
+        if cache is not None:
+            for name, value in state.items():
+                cache[name].copy_(value)
     x = x + out
+    if "cross" in p and encoder_out is not None:
+        h = layers.rmsnorm(p["cross_norm"], x, cfg.norm_eps)
+        out, _ = attn_mod.attn(p["cross"], cfg, h, positions, causal=False,
+                               kv_source=encoder_out, use_rope=False)
+        x = x + out
     moe_load = None
     if "mlp" in p:
         h = layers.rmsnorm(p["mlp_norm"], x, cfg.norm_eps)
@@ -133,7 +206,7 @@ _SAVE_MATMULS = functools.partial(
 
 
 def _apply_group(gp, cfg: ModelConfig, x, positions, gcache, cache_index,
-                 gplace, use_flash: bool, collect_moe: bool):
+                 encoder_out, gplace, use_flash: bool, collect_moe: bool):
     """One superblock (the JAX package's scan body); returns (x, the stacked
     expert loads of its MoE sub-layers or None)."""
     loads = []
@@ -141,7 +214,8 @@ def _apply_group(gp, cfg: ModelConfig, x, positions, gcache, cache_index,
         sub_cache = gcache[f"sub{j}"] if gcache is not None else None
         place = gplace[j] if gplace is not None else None
         x, load = _apply_sub(gp[f"sub{j}"], cfg, j, x, positions, sub_cache,
-                             cache_index, place, use_flash, collect_moe)
+                             cache_index, encoder_out, place, use_flash,
+                             collect_moe)
         if load is not None:
             loads.append(load)
     return x, (torch.stack(loads) if loads else None)
@@ -149,12 +223,14 @@ def _apply_group(gp, cfg: ModelConfig, x, positions, gcache, cache_index,
 
 def decoder_apply(params, cfg: ModelConfig, x, positions,
                   cache: Optional[PyTree] = None, cache_index: int = 0,
+                  encoder_out: Optional[torch.Tensor] = None,
                   placements: Optional[torch.Tensor] = None,
                   use_flash: bool = False, remat: bool = True,
                   collect_moe: bool = False):
     """x: (B, T, D) -> (x, cache), or (x, cache, loads) with
     ``collect_moe``. The cache, when given, is updated in place and
-    returned; without one the second value is None.
+    returned; without one the second value is None. ``encoder_out``
+    (B, S, D) feeds the cross-attention sub-layers of an encoder-decoder.
 
     Each leaf of ``params["groups"]`` is a stacked (n_groups, ...) tensor
     or a sequence of its n_groups slices (the train step's autograd
@@ -168,7 +244,6 @@ def decoder_apply(params, cfg: ModelConfig, x, positions,
     ``remat`` checkpoints each superblock (see the module docstring) when
     there is no cache and autograd is recording; otherwise it changes
     nothing."""
-    _check_ported(cfg)
     period = cfg.pattern_period
     n_groups = cfg.n_layers // period
     if placements is not None:
@@ -182,8 +257,8 @@ def decoder_apply(params, cfg: ModelConfig, x, positions,
         gcache = (tree_map(lambda a: a[g], cache) if cache is not None
                   else None)
         gplace = placements[g] if placements is not None else None
-        args = (gp, cfg, x, positions, gcache, cache_index, gplace,
-                use_flash, collect_moe)
+        args = (gp, cfg, x, positions, gcache, cache_index, encoder_out,
+                gplace, use_flash, collect_moe)
         if remat:
             x, loads = checkpoint(_apply_group, *args, use_reentrant=False,
                                   context_fn=_SAVE_MATMULS)
@@ -196,22 +271,58 @@ def decoder_apply(params, cfg: ModelConfig, x, positions,
     return x, cache
 
 
+def encode(params, cfg: ModelConfig, frames: torch.Tensor) -> torch.Tensor:
+    """The whisper-style encoder over stub frame embeddings (B, F, D):
+    sinusoidal frame positions, then ``cfg.encoder_layers`` non-causal
+    plain attention layers (no RoPE, never the flash kernel) with dense
+    MLPs, then a final norm."""
+    ecfg = _encoder_cfg(cfg)
+    _, f, d = frames.shape
+    pos = torch.arange(f, device=frames.device)
+    half = d // 2
+    freqs = 10_000.0 ** (-torch.arange(half, dtype=torch.float32,
+                                       device=frames.device) / half)
+    angles = pos[:, None] * freqs
+    x = frames + torch.cat([torch.sin(angles), torch.cos(angles)],
+                           dim=-1).to(frames.dtype)[None]
+    groups = tree_map(lambda a: a.unbind(0) if torch.is_tensor(a) else a,
+                      params["encoder"]["groups"]["sub0"])
+    for g in range(ecfg.n_layers):
+        gp = tree_map(lambda a: a[g], groups)
+        h = layers.rmsnorm(gp["norm"], x, cfg.norm_eps)
+        out, _ = attn_mod.attn(gp["attn"], ecfg, h, pos, causal=False,
+                               use_rope=False, use_flash=False)
+        x = x + out
+        h = layers.rmsnorm(gp["mlp_norm"], x, cfg.norm_eps)
+        x = x + layers.mlp(gp["mlp"], h)
+    return layers.rmsnorm(params["encoder"]["final_norm"], x, cfg.norm_eps)
+
+
 def forward(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
             cache: Optional[PyTree] = None, cache_index: int = 0,
             placements: Optional[torch.Tensor] = None,
             use_flash: bool = False, remat: bool = True,
             collect_moe: bool = False):
-    """batch: {"tokens": (B, T)}. Returns (hidden (B, T, D), cache), or
-    (hidden, cache, loads) with ``collect_moe`` (see :func:`decoder_apply`
-    for ``placements``, ``remat`` and ``loads``)."""
+    """batch: {"tokens": (B, T)} and, by front end, {"frames"} (audio,
+    encoded here), {"encoder_out"} (audio, encoded once by the caller for
+    the decode steps) or {"pixel_embeds"} (B, P, D) (a vision prefix,
+    prepended). Returns (hidden (B, T [+ P], D), cache), or (hidden, cache,
+    loads) with ``collect_moe`` (see :func:`decoder_apply` for
+    ``placements``, ``remat`` and ``loads``)."""
     tokens = batch["tokens"]
     x = layers.embed(params["embed"], tokens).to(torch.bfloat16)
+    encoder_out = batch.get("encoder_out")
+    if (encoder_out is None and cfg.frontend == "audio_stub"
+            and "frames" in batch):
+        encoder_out = encode(params, cfg, batch["frames"])
+    elif cfg.frontend == "vision_stub" and "pixel_embeds" in batch:
+        x = torch.cat([batch["pixel_embeds"].to(x.dtype), x], dim=1)
     t = x.shape[1]
     positions = cache_index + torch.arange(t, device=x.device)
     x, new_cache, *loads = decoder_apply(
         params, cfg, x, positions, cache=cache, cache_index=cache_index,
-        placements=placements, use_flash=use_flash, remat=remat,
-        collect_moe=collect_moe)
+        encoder_out=encoder_out, placements=placements, use_flash=use_flash,
+        remat=remat, collect_moe=collect_moe)
     x = layers.rmsnorm(params["final_norm"], x, cfg.norm_eps)
     return (x, new_cache, *loads)
 
@@ -248,8 +359,10 @@ def lm_loss(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
             use_flash: bool = False, remat: bool = True,
             loss_chunks: int = 8, collect_moe: bool = False):
     """Next-token cross-entropy of ``batch`` ({"tokens", "labels"}, each
-    (B, T)), the mean over the labels that are not negative; with
-    ``collect_moe`` also the expert loads (see :func:`decoder_apply`).
+    (B, T), and a front end's inputs as :func:`forward` takes them), the
+    mean over the labels that are not negative; with ``collect_moe`` also
+    the expert loads (see :func:`decoder_apply`). A vision prefix is
+    dropped before the loss (loss on text only).
 
     The logits are made per sequence chunk: ``loss_chunks`` chunks, or the
     largest count below it that divides T (the JAX package's rule), each
@@ -260,6 +373,8 @@ def lm_loss(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
                                 use_flash=use_flash, remat=remat,
                                 collect_moe=collect_moe)
     labels = batch["labels"]
+    if cfg.frontend == "vision_stub" and "pixel_embeds" in batch:
+        hidden = hidden[:, batch["pixel_embeds"].shape[1]:]
     t = hidden.shape[1]
     chunks = min(loss_chunks, t)
     while t % chunks:

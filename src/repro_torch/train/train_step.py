@@ -46,7 +46,9 @@ def make_train_step(cfg: ModelConfig, opt_cfg: OptConfig,
     (params, opt_state, metrics).
 
     ``batch`` is {"tokens", "labels"}, each (B, T) with B a multiple of
-    ``microbatches``. The step updates ``params`` and ``opt_state`` in place
+    ``microbatches``, and the arch's front-end input (``frames``,
+    ``encoder_out`` or ``pixel_embeds``, batch-first), which goes to
+    :func:`lm_loss` unchanged, split with the tokens. The step updates ``params`` and ``opt_state`` in place
     (:func:`opt_update`) and returns them. ``metrics`` holds 0-d tensors
     ``loss`` (the mean over the microbatches), ``grad_norm`` and ``lr``,
     and, with ``collect_moe`` on an MoE model, ``expert_load`` (n_groups,
@@ -127,7 +129,9 @@ def make_serve_step(cfg: ModelConfig, use_flash: bool = False):
     (logits (B, 1, V), cache): the next-token logits at the last position.
     T = prompt for prefill, 1 for decode; with ``cache=None`` a cache-free
     step over the whole prompt, where ``use_flash`` sends attention to the
-    flash kernel. ``placements`` (n_layers, E) places an MoE model's
+    flash kernel. ``batch`` may carry the front end's input as
+    :func:`forward` takes it (``frames``, ``encoder_out``,
+    ``pixel_embeds``). ``placements`` (n_layers, E) places an MoE model's
     experts (``models.skewshield.placements_array``). The cache is updated
     in place and returned."""
 

@@ -55,8 +55,10 @@ class TrainerConfig:
 
 
 class Trainer:
-    """``data_fn(step)`` returns the step's batch, {"tokens", "labels"} as
-    tensors or numpy arrays (moved to ``device``). Parameters come from
+    """``data_fn(step)`` returns the step's batch, {"tokens", "labels"} and
+    any front-end input (``frames``, ``pixel_embeds``), as tensors or numpy
+    arrays (moved to ``device``; integer ones as int64, floating ones in
+    their dtype). Parameters come from
     ``schema.init`` with a generator seeded ``seed`` on ``device`` (None =
     the CUDA card)."""
 
@@ -140,8 +142,12 @@ class Trainer:
         return placements_array(self.placers, self.device)
 
     def _batch(self, step: int) -> Dict[str, torch.Tensor]:
-        return {k: torch.as_tensor(v).to(self.device, torch.long)
-                for k, v in self.data_fn(step).items()}
+        out = {}
+        for k, v in self.data_fn(step).items():
+            v = torch.as_tensor(v)
+            out[k] = v.to(self.device,
+                          None if v.is_floating_point() else torch.long)
+        return out
 
     def run(self, steps: Optional[int] = None) -> List[Dict[str, float]]:
         steps = steps if steps is not None else self.tcfg.total_steps

@@ -67,12 +67,13 @@ def test_routing_kernel_routes_key_minus_one_to_the_first_empty_slot(cuda):
 
 @pytest.mark.parametrize("offset", [0, 1, 2, 3])
 @pytest.mark.parametrize("a,n_real", [(1, 0), (128, 64), (4096, 3000),
-                                      (16384, 16381)])
+                                      (16384, 16381), (32768, 24000)])
 def test_routing_kernel_edge_keys_and_offsets(cuda, a, n_real, offset):
     """The hash-table kernel against ``route_plain``, bit-identical: tables
-    of 1 to 16384 slots (192 KB staged), empty slots with different dests,
-    keys -1, -2, INT32_MIN and 2**31 - 1, and key arrays that start 0-3
-    elements off the 16-byte grid, so the scalar head and tail run."""
+    of 1 to 16384 slots (at most 192 KB) and one of 32768 past that, empty
+    slots with different dests, keys -1, -2, INT32_MIN and 2**31 - 1, and
+    key arrays that start 0-3 elements off the 16-byte grid, so the scalar
+    head and tail run."""
     rng = np.random.default_rng(a + offset)
     tk = np.full(a, -1, np.int32)
     tk[:n_real] = rng.choice(2**31 - 1, size=n_real, replace=False)

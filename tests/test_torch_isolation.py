@@ -3,7 +3,8 @@
 runs with both blocked (the stream stage, a ``ChaosRunner`` interval with
 a kill and an ``AutoscaleLoop`` step on the device ring, a smoke serve
 step, an MoE smoke serve path, the serving engine, a keyed data pipeline
-interval and an MoE train step), and its entry
+interval, an MoE train step and one smoke forward of each of jamba,
+xlstm, whisper and internvl2), and its entry
 points refuse to run without a CUDA device unless the caller asks for the
 CPU."""
 
@@ -139,6 +140,19 @@ with tempfile.TemporaryDirectory() as d:
         assert "device='cpu'" in str(e)
     else:
         raise AssertionError("Trainer without device= ran with no CUDA")
+from repro_torch.launch.serve import frontend_inputs
+from repro_torch.models import forward
+for arch in ("jamba_1_5_large_398b", "xlstm_125m", "whisper_large_v3",
+             "internvl2_1b"):
+    acfg = smoke_config(arch)
+    gen = torch.Generator().manual_seed(1)
+    params, tokens = init_request(acfg, 2, 8, "cpu", gen)
+    front = frontend_inputs(acfg, 2, "cpu", gen)
+    with torch.inference_mode():
+        hidden, _ = forward(params, acfg, {"tokens": tokens, **front})
+    assert hidden.shape == (2, 8 + (acfg.prefix_len if front.get(
+        "pixel_embeds") is not None else 0), acfg.d_model), arch
+    assert bool(torch.isfinite(hidden.float()).all()), arch
 assert not any(m == "jax" or m.startswith(("jax.", "repro."))
                for m in sys.modules if sys.modules[m] is not None)
 print("ok")

@@ -23,6 +23,7 @@ from repro_torch.core.balancer import Hash32, fmix32 as np_fmix32
 from repro_torch.kernels import (RoutingTable, key_stats, ref, route_keys,
                                  route_plain, routing_lookup)
 from repro_torch.kernels.key_stats import key_sums
+from repro_torch.kernels.routing_lookup import MAX_TABLE
 
 
 def _t(a, dtype=torch.int32):
@@ -208,13 +209,15 @@ def _probe_emulation(keys, table, n_dest, seed):
 
 
 @pytest.mark.parametrize("a,n_real", [(1, 0), (128, 64), (4096, 3000),
-                                      (16384, 16381)])
+                                      (16384, 16381), (32768, 24000)])
 def test_routing_table_probe_matches_references(a, n_real):
     """The host-built hash table, probed as the kernel probes it, routes as
     ``route_plain``, the JAX ``ref.routing_lookup`` and Pallas interpret do:
     table keys, misses, keys -1, -2, INT32_MIN and 2**31 - 1, against empty
     slots with different dests (key -1 takes the first one's). Every table
-    key is found within the recorded longest chain, which some key needs."""
+    key is found within the recorded longest chain, which some key needs.
+    Up to ``MAX_TABLE`` slots the table takes at most 192 KB; past it (the
+    32,768-slot case) each distinct key gets 4 home buckets."""
     rng = np.random.default_rng(a + n_real)
     tk = np.full(a, -1, np.int32)
     tk[:n_real] = rng.choice(2**31 - 1, size=n_real, replace=False)
@@ -251,7 +254,10 @@ def test_routing_table_probe_matches_references(a, n_real):
     _, at = _probe_emulation(_t(distinct), table, 13, 7)
     assert (at >= 0).all()
     assert int(at.max()) + 1 == table.max_probe <= 16
-    assert table.buckets.shape[0] * 16 <= 192 * 1024
+    if a <= MAX_TABLE:
+        assert table.buckets.shape[0] * 16 <= 192 * 1024
+    else:
+        assert table.n_home == 4 * distinct.size
 
 
 def test_routing_table_refuses_what_it_cannot_hold():
@@ -259,14 +265,59 @@ def test_routing_table_refuses_what_it_cannot_hold():
         RoutingTable.build(np.array([4, -1, 4]), np.array([1, 0, 2]))
     with pytest.raises(ValueError, match="dests must be >= 0"):
         RoutingTable.build(np.array([4, -1]), np.array([1, -1]))
-    with pytest.raises(ValueError, match="MAX_TABLE"):
-        RoutingTable.build(np.full(16385, -1), np.zeros(16385))
+    # no bound on the slots but the kernel's int32 bucket index: one past
+    # MAX_TABLE builds, as the JAX package's kernel takes any table
+    table = RoutingTable.build(np.full(16385, -1), np.zeros(16385))
+    assert len(table) == 16385 and table.max_probe == 1
     # -1 and other negative keys may repeat: the first slot wins
     table = RoutingTable.build(np.array([-2, -1, -2, -1]),
                                np.array([3, 5, 4, 6]))
     np.testing.assert_array_equal(
         route_plain(_t(np.array([-2, -1], np.int32)), table, 7).numpy(),
         [3, 5])
+
+
+def test_large_table_stage_matches_jax_pallas_stage():
+    """A ``substrate="kernels"`` stage whose routing table holds 20,000
+    entries (32,768 slots once the engine pads it to a power of two, past
+    ``MAX_TABLE``) against the JAX stage on ``substrate="pallas"`` (interpret
+    mode) holding the same table: routes, reports and counts bit for bit
+    over two intervals. theta_max is high, so neither stage plans and the
+    table stays as installed."""
+    from repro.core import Assignment as RefAssignment
+    from repro.core import BalanceConfig as RefConfig
+    from repro.core import RebalanceController as RefController
+    from repro.streams import KeyedStage as RefStage
+    from repro.streams import WordCount as RefWordCount
+    from repro_torch.core import Assignment, BalanceConfig, RebalanceController
+    from repro_torch.streams import KeyedStage, WordCount
+
+    rng = np.random.default_rng(13)
+    tkeys = rng.choice(2**20, size=20_000, replace=False)
+    table = dict(zip(tkeys.tolist(), rng.integers(0, 7, tkeys.size).tolist()))
+    kw = dict(theta_max=100.0, table_max=30_000, window=2)
+    ref = RefStage(RefWordCount(), RefController(
+        RefAssignment(RefHash32(7, seed=4), dict(table)), RefConfig(**kw),
+        algorithm="mixed"), window=2, vectorized=True,
+        state_backend="columnar", substrate="pallas")
+    port = KeyedStage(WordCount(), RebalanceController(
+        Assignment(Hash32(7, seed=4), dict(table)), BalanceConfig(**kw),
+        algorithm="mixed"), window=2, state_backend="device",
+        substrate="kernels", device="cpu")
+    for i in range(2):
+        keys = np.concatenate([rng.choice(tkeys, 1500),
+                               rng.integers(0, 2**20, 1500)]).astype(np.int64)
+        np.testing.assert_array_equal(port._dest_batch(keys),
+                                      ref._dest_batch(keys))
+        port.process_interval_arrays(keys, None)
+        ref.process_interval_arrays(keys, None)
+    assert len(port._route_cache[1]) == 32_768 > MAX_TABLE
+    for rp, rr in zip(port.reports, ref.reports):
+        assert rp.table_size == rr.table_size == 20_000
+        assert (rp.tuples, rp.makespan, rp.migrated_bytes) == \
+            (rr.tuples, rr.makespan, rr.migrated_bytes)
+        np.testing.assert_array_equal(rp.task_loads, rr.task_loads)
+    assert port.outputs == ref.outputs
 
 
 @pytest.mark.parametrize("bad", [torch.int64, torch.float32, torch.int16])

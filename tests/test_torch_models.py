@@ -362,14 +362,19 @@ def test_serve_local_greedy_tokens_match_jax(arch):
 
 def test_model_schema_and_configs():
     """The full gemma3-12b schema: 12.6 B parameters (25.3 GB in bf16);
-    archs whose layer kinds are not ported raise, naming their item."""
+    the four archs of the recurrent layers and front ends load by either
+    name, and each full schema counts the JAX package's parameters."""
     cfg = get_config("gemma3-12b")
     sch = model_schema(cfg)
     assert schema.count_params(sch) == jschema.count_params(
         jax_model_schema(jax_get_config("gemma3-12b")))
     assert 12.6e9 < schema.count_params(sch) < 12.7e9
     assert [cfg.layer_window(i) for i in range(48)].count(1024) == 40
-    with pytest.raises(NotImplementedError, match="Queue A item 4"):
-        get_config("jamba-1-5-large-398b")
-    with pytest.raises(NotImplementedError, match="Queue A item 4"):
-        smoke_config("xlstm_125m")
+    for name in ("jamba-1-5-large-398b", "xlstm_125m", "whisper-large-v3",
+                 "internvl2_1b"):
+        full = get_config(name)
+        assert full == get_config(name.replace("-", "_"))
+        assert smoke_config(name).name == full.name
+        assert schema.count_params(model_schema(full)) == \
+            jschema.count_params(jax_model_schema(jax_get_config(
+                name.replace("-", "_"))))
