@@ -117,17 +117,29 @@ It prints one JSON line per phase, each with its wall seconds:
   the CPU columnar stage with the same table: reports, outputs and the
   dense dest table of every key id identical; row
   ``routing_lookup[dense,large_table]``.
+* ``sharded`` — the stream cell's deployment on
+  ``state_backend="sharded"`` (``substrate="kernels"``) over a one-rank
+  NCCL group (a ``FileStore`` in a temporary directory, no network)
+  against a ``device`` stage on the same traffic (the stream phase's 8
+  intervals of keys): 8 intervals, a ``scale_to`` to 17 tasks, a
+  checkpoint, 2 intervals, the restore and the replay of those 2. Reports, outputs, emitted sum, routing tables and the
+  dense routes identical; ``all_to_all_single`` once an interval; the
+  routing kernel at least once per assignment version. Read: interval ms
+  beside the device stage's, the collective's ms (host-timed between two
+  synchronisations), ``scale_to``, checkpoint and restore ms, peak memory;
+  row ``routing_lookup[dense,sharded]`` on this rank's key block.
 * ``serve_arch`` — once for each of ``ARCH_SERVES`` (whisper-large-v3,
-  internvl2-1b, xlstm-125m) at full width and depth, random bf16 weights,
-  4 requests: the cache-free step with flash (one launch per decoder
-  attention layer, each output held against the plain version; 0 for
-  xlstm), the same step without flash, the cached prefill (whisper's
-  frames encoded once; internvl2's 256-token prefix before the prompt)
-  and 16 timed greedy decode steps (none may launch flash). The logits
-  gaps (flash against plain, cached prefill against both) are reported
-  against atol 0.3 / rtol 0.05 (secondary, ROADMAP C3); the parameter
-  count must equal the schema's. Then the flash rows at whisper's and
-  internvl2's shapes (``arch_flash_rows``).
+  internvl2-1b, xlstm-125m, qwen2-7b, granite-8b, granite-20b) at full
+  width and depth, random bf16 weights, 4 requests (2048 prompt tokens
+  for the three dense archs): the cache-free step with flash (one launch
+  per decoder attention layer, each output held against the plain
+  version; 0 for xlstm), the same step without flash, the cached prefill
+  (whisper's frames encoded once; internvl2's 256-token prefix before the
+  prompt) and 16 timed greedy decode steps (none may launch flash). The
+  logits gaps (flash against plain, cached prefill against both) are
+  reported against atol 0.3 / rtol 0.05 (secondary, ROADMAP C3); the
+  parameter count must equal the schema's. Then a flash row at each
+  shape that launched it (``arch_flash_rows``).
 * ``mamba`` — one jamba-1.5-large-398b mamba layer at full width
   (``MambaPhaseConfig``): a bf16 prefill of 2048 tokens (ms, tokens/s,
   peak memory above its inputs beside the (B, T, Di, N) float32 tensor's
@@ -2640,13 +2652,161 @@ def phase_large_table(cfg: Config, lcfg: LargeTableConfig, device,
             (tk, td, dev.backend.fleet.domain), launches)
 
 
+# -- the sharded backend --------------------------------------------------------
+
+SHARDED_INTERVALS = 8
+SHARDED_REPLAY = 2
+
+
+def phase_sharded(cfg: Config, device, sync, trace: list) -> tuple:
+    """The stream cell's deployment on ``state_backend="sharded"`` (the
+    routing kernel on the ``"kernels"`` substrate) over a one-rank process
+    group, NCCL on the card and gloo on the CPU, rendezvous through a
+    ``FileStore`` in a temporary directory (no network), against a
+    ``device`` stage on the same traffic in this call: the stream phase's
+    8 intervals of keys (``trace``), a ``scale_to`` to ``n_tasks + 2``, a
+    checkpoint, its first 2 intervals again, then the restore and the
+    replay of those 2. Reports, outputs, emitted sum,
+    routing table and the dense routes identical; ``all_to_all_single``
+    exactly once an interval, each host-timed between two
+    synchronisations. Returns (metrics, the final table's arrays at the
+    stage's padded capacity and this rank's key-block length, for the
+    kernel's row, and the routing launches of the sharded stage's
+    intervals); ``main`` checks the launches."""
+    import datetime
+    import os
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+    dev = torch.device(device)
+    a2a = dist.all_to_all_single
+    collective_ms = []
+
+    def timed_a2a(*args, **kw):
+        sync()
+        t0 = time.perf_counter()
+        work = a2a(*args, **kw)
+        sync()
+        collective_ms.append((time.perf_counter() - t0) * 1e3)
+        return work
+
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group(
+            "nccl" if dev.type == "cuda" else "gloo",
+            store=dist.FileStore(os.path.join(tmp, "store"), 1), rank=0,
+            world_size=1, timeout=datetime.timedelta(seconds=300))
+        dist.all_to_all_single = timed_a2a
+        try:
+            return _drive_sharded(cfg, device, sync, trace, collective_ms)
+        finally:
+            dist.all_to_all_single = a2a
+            dist.destroy_process_group()
+
+
+def _drive_sharded(cfg: Config, device, sync, trace: list,
+                   collective_ms: list) -> tuple:
+    from repro_torch.kernels import route_keys
+    from repro_torch.streams import checkpoint_stage, restore_stage
+    shd = make_stage(cfg, "sharded", "kernels", device)
+    ref = make_stage(cfg, "device", "kernels", device)
+    versions = []
+    versions_seen(shd, versions)
+    interval_ms, ref_ms, launches, reports, tables = [], [], [0], [], []
+
+    def run(keys, label: str, against=None, table=None):
+        before, calls = route_keys.launches, len(collective_ms)
+        sync()
+        t0 = time.perf_counter()
+        got = shd.process_interval_arrays(keys)
+        sync()
+        interval_ms.append((time.perf_counter() - t0) * 1e3)
+        launches[0] += route_keys.launches - before
+        if len(collective_ms) - calls != 1:
+            raise AssertionError(f"{label}: {len(collective_ms) - calls} "
+                                 "all_to_all_single calls, not 1")
+        if against is None:
+            t0 = time.perf_counter()
+            against = ref.process_interval_arrays(keys)
+            sync()
+            ref_ms.append((time.perf_counter() - t0) * 1e3)
+            # the dense routes each stage routed this interval with, every
+            # key id (the padding row past the domain is never read)
+            dom = ref.backend.fleet.domain
+            sk, sh = shd.backend._dest_dense_cache[0::2]
+            rk, rh = ref.backend._dest_dense_cache[0::2]
+            if sk[0] != rk[0] or not np.array_equal(sh[:dom], rh[:dom]):
+                raise AssertionError(f"{label}: dense routes differ")
+            table = dict(ref.controller.assignment.table)
+        _same_report(got, against, exact=True)
+        if shd.controller.assignment.table != table:
+            raise AssertionError(f"{label}: routing tables differ")
+        reports.append(against)
+        tables.append(table)
+
+    traffic = trace[:SHARDED_INTERVALS] + trace[:SHARDED_REPLAY]
+    for i, keys in enumerate(traffic):
+        if i == SHARDED_INTERVALS:
+            t0 = time.perf_counter()
+            shd.scale_to(cfg.n_tasks + 2)
+            sync()
+            scale_ms = (time.perf_counter() - t0) * 1e3
+            ref.scale_to(cfg.n_tasks + 2)
+            t0 = time.perf_counter()
+            ckpt = checkpoint_stage(shd)
+            checkpoint_ms = (time.perf_counter() - t0) * 1e3
+        run(keys, f"interval {i + 1}")
+    if shd.outputs != ref.outputs or shd.emitted_sum != ref.emitted_sum:
+        raise AssertionError("outputs differ from the device stage")
+    t0 = time.perf_counter()
+    restore_stage(shd, ckpt)
+    sync()
+    restore_ms = (time.perf_counter() - t0) * 1e3
+    for j in range(SHARDED_REPLAY):
+        i = SHARDED_INTERVALS + j
+        run(traffic[i], f"replayed interval {i + 1}", reports[i], tables[i])
+    if shd.outputs != ref.outputs or shd.emitted_sum != ref.emitted_sum:
+        raise AssertionError("the replay's outputs differ from the device "
+                             "stage's")
+    assignment = shd.controller.assignment
+    if assignment.table_size == 0:
+        raise AssertionError("the sharded stream never rebalanced")
+    # the final table at the capacity the stage's next route would pad it to
+    slots = max(shd._table_capacity,
+                1 << max(0, assignment.table_size - 1).bit_length())
+    tk, td = assignment.table_arrays(slots)
+    med = statistics.median(interval_ms[:SHARDED_INTERVALS])
+    fleet = shd.backend.fleet
+    return ({"n_shards": fleet.n_shards, "group_backend": "nccl"
+             if fleet.device.type == "cuda" else "gloo",
+             "intervals": SHARDED_INTERVALS, "replayed": SHARDED_REPLAY,
+             "tuples_per_interval": cfg.tuples, "keys": cfg.k,
+             "window": cfg.window, "scaled_to": cfg.n_tasks + 2,
+             "key_block": fleet._block,
+             "table_size": assignment.table_size,
+             "interval_ms": interval_ms, "interval_ms_median": med,
+             "tuples_per_s": cfg.tuples / med * 1e3,
+             "device_interval_ms": ref_ms,
+             "device_interval_ms_median": statistics.median(
+                 ref_ms[:SHARDED_INTERVALS]),
+             "collective_ms": collective_ms,
+             "collective_ms_median": statistics.median(collective_ms),
+             "all_to_all_calls": len(collective_ms),
+             "scale_to_ms": scale_ms, "checkpoint_ms": checkpoint_ms,
+             "restore_ms": restore_ms,
+             "versions_routed": sorted(set(versions)),
+             "reports_match_device": True, "replay_matches": True},
+            (tk, td, fleet._block), launches[0])
+
+
 @dataclasses.dataclass(frozen=True)
 class ArchServeConfig:
-    """A serving deployment of one of the archs with recurrent layers or a
-    front end, at full width and depth: ``batch`` requests of ``prompt``
-    text tokens (after internvl2's 256-token vision prefix; against
-    whisper's 1500 encoder frames, inside its 448-token decoder context),
-    16 greedy tokens each."""
+    """A serving deployment of one more arch at full width and depth (the
+    archs with recurrent layers or a front end, and the dense qwen2-7b,
+    granite-8b and granite-20b): ``batch`` requests of ``prompt`` text
+    tokens (after internvl2's 256-token vision prefix; against whisper's
+    1500 encoder frames, inside its 448-token decoder context), 16 greedy
+    tokens each."""
 
     arch: str
     prompt: int
@@ -2659,7 +2819,10 @@ class ArchServeConfig:
 
 ARCH_SERVES = (ArchServeConfig("whisper-large-v3", 256),
                ArchServeConfig("internvl2-1b", 1792),
-               ArchServeConfig("xlstm-125m", 2048))
+               ArchServeConfig("xlstm-125m", 2048),
+               ArchServeConfig("qwen2-7b", 2048),
+               ArchServeConfig("granite-8b", 2048),
+               ArchServeConfig("granite-20b", 2048))
 
 
 def _gap(a, b, acfg) -> dict:
@@ -3039,7 +3202,6 @@ def main() -> int:
     chaos, chaos_launches, (tk, td, domain), (otk, otd, okeys), \
         stats_input = phase_chaos(cfg, ObjectLegConfig(), "cuda", sync,
                                   trace)
-    del trace
     chaos_peak = torch.cuda.max_memory_allocated()
     check_chaos_launches(chaos, chaos_launches)
     timer = Timer(torch, cfg.reps)
@@ -3134,6 +3296,33 @@ def main() -> int:
           "kernel_rows": rows[-1:], "card": nvidia_smi_line(),
           "seconds": time.perf_counter() - t0})
 
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    route_keys.launches = 0
+    key_stats.launches = 0
+    sharded, (tk, td, block), sharded_launches = phase_sharded(
+        cfg, "cuda", sync, trace)
+    del trace
+    sharded_peak = torch.cuda.max_memory_allocated()
+    if sharded_launches < len(sharded["versions_routed"]):
+        raise AssertionError(f"the sharded stage launched the routing kernel "
+                             f"{sharded_launches} times for "
+                             f"{len(sharded['versions_routed'])} assignment "
+                             "versions")
+    timer = Timer(torch, cfg.reps)
+    rows.append(routing_row(
+        timer, "routing_lookup[dense,sharded]",
+        torch.arange(block + 1, dtype=torch.int32, device="cuda"),
+        RoutingTable.from_arrays(tk, td, torch.device("cuda")),
+        dataclasses.replace(cfg, n_tasks=sharded["scaled_to"])))
+    del timer
+    emit({"phase": "sharded", **sharded,
+          "launches": {"route_keys": sharded_launches,
+                       "key_stats": key_stats.launches},
+          "kernel_rows": rows[-1:], "device_memory_peak_bytes": sharded_peak,
+          "card": nvidia_smi_line(), "seconds": time.perf_counter() - t0})
+
     arch_flash = {}
     for acfg in ARCH_SERVES:
         t0 = time.perf_counter()
@@ -3156,7 +3345,10 @@ def main() -> int:
     t0 = time.perf_counter()
     timer = Timer(torch, cfg.reps)
     edge = check_flash_edges(torch, torch.device("cuda"))
-    for acfg in ARCH_SERVES[:2]:
+    first_row = len(rows)
+    for acfg in ARCH_SERVES:
+        if not arch_flash[acfg.arch]:
+            continue
         mc = get_config(acfg.arch)
         t = acfg.prompt + (mc.prefix_len if mc.frontend == "vision_stub"
                            else 0)
@@ -3164,7 +3356,7 @@ def main() -> int:
                               f"{acfg.arch}]", mc, acfg.batch, t, 0,
                               acfg.seed, torch.device("cuda"), edge))
     del timer
-    emit({"phase": "arch_flash_rows", "kernel_rows": rows[-2:],
+    emit({"phase": "arch_flash_rows", "kernel_rows": rows[first_row:],
           "seconds": time.perf_counter() - t0})
 
     t0 = time.perf_counter()
@@ -3210,6 +3402,7 @@ def main() -> int:
                 f"flash_attention[global,D={serve_moe['head_dim']}]":
                     moe_launches["cache_free_flash"],
                 "routing_lookup[dense,large_table]": large_launches,
+                "routing_lookup[dense,sharded]": sharded_launches,
                 **{f"flash_attention[global,{a}]": n
                    for a, n in arch_flash.items() if n}}
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",

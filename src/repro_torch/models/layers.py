@@ -87,7 +87,10 @@ def unembed_schema(cfg: ModelConfig):
 
 
 def embed(p, tokens: torch.Tensor) -> torch.Tensor:
-    return p["tokens"][tokens]
+    # F.embedding, not ``p["tokens"][tokens]``: the gather's own backward
+    # adds a repeated token's rows with atomic float adds on the CPU, in an
+    # order that changes from call to call
+    return F.embedding(tokens, p["tokens"])
 
 
 def unembed(p, x: torch.Tensor) -> torch.Tensor:

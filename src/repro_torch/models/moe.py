@@ -13,7 +13,10 @@ no dynamic shapes, so nothing in it waits for the card.
      at or past the capacity are dropped;
   4. tokens are gathered into an (E, cap, D) buffer, the expert FFNs run as
      batched matmuls, and each (token, slot) entry gathers its expert's
-     output back and is combined with its gate weight.
+     output back and is combined with its gate weight. The buffer's
+     gather has a backward of its own (``_DispatchGather``): each token
+     sums its k entries' gradients in slot order, so the gradient is the
+     same on every call (ROADMAP C14).
 
 Dispatch is one group. The JAX package splits it into one group per data
 shard only when ``REPRO_PERF_MOE_GROUPED`` is set and a mesh is installed
@@ -70,6 +73,31 @@ def _served(rank: torch.Tensor, count: torch.Tensor, cap: int
     return (rank < cap) & ~((rank == cap - 1) & (count > cap))
 
 
+class _DispatchGather(torch.autograd.Function):
+    """``x_pad[dispatch]``: the (E, cap, D) dispatch buffer gathered from the
+    N token rows of ``xf`` and a zero row (index N).
+
+    Its backward gathers each token's k entries from the buffer's gradient
+    through their positions ``pos`` (N, k) and sums them in slot order,
+    where ``served`` (N, k) is false: a gather and a fixed-order sum.
+    Autograd's own backward of the gather scatter-adds a token's copies
+    with atomic float adds on the CPU, whose order, and so whose last bit,
+    changes from call to call."""
+
+    @staticmethod
+    def forward(ctx, xf, dispatch, pos, served):
+        ctx.save_for_backward(pos, served)
+        x_pad = torch.cat([xf, xf.new_zeros(1, xf.shape[1])])
+        return x_pad[dispatch]
+
+    @staticmethod
+    def backward(ctx, grad):
+        pos, served = ctx.saved_tensors
+        parts = grad.reshape(-1, grad.shape[-1])[pos]           # (N, k, D)
+        parts = torch.where(served[..., None], parts, parts.new_zeros(()))
+        return parts.sum(dim=1), None, None, None
+
+
 def moe(p, cfg: ModelConfig, x: torch.Tensor,
         placement: Optional[torch.Tensor] = None,
         return_stats: bool = False):
@@ -111,20 +139,22 @@ def moe(p, cfg: ModelConfig, x: torch.Tensor,
     served = (slot_rank < count[:, None]) & \
         _served(slot_rank, count[:, None], cap)
     dispatch = torch.where(served, order[pos] // k, n)
-    x_pad = torch.cat([xf, xf.new_zeros(1, d)])
-    xs = x_pad[dispatch]                                     # (E, cap, D)
+    # each (token, slot) entry's place in the buffer, and whether it is
+    # served there
+    rank_of = torch.empty_like(rank_sorted)
+    rank_of[order] = rank_sorted                 # a permutation: no repeats
+    src = flat_e * cap + rank_of.clamp(max=cap - 1)
+    entry_served = _served(rank_of, count[flat_e], cap)
+    xs = _DispatchGather.apply(xf, dispatch, src.reshape(n, k),
+                               entry_served.reshape(n, k))  # (E, cap, D)
 
     gate_h = F.silu(torch.bmm(xs, p["w_gate"]))
     up_h = torch.bmm(xs, p["w_up"])
     ys = torch.bmm(gate_h * up_h, p["w_down"])               # (E, cap, D)
 
     # combine: each (token, slot) entry gathers its expert's output back
-    rank_of = torch.empty_like(rank_sorted)
-    rank_of[order] = rank_sorted                 # a permutation: no repeats
-    src = flat_e * cap + rank_of.clamp(max=cap - 1)
     y_tok = ys.reshape(e * cap, d)[src]
-    y_tok = torch.where(_served(rank_of, count[flat_e], cap)[:, None], y_tok,
-                        y_tok.new_zeros(()))
+    y_tok = torch.where(entry_served[:, None], y_tok, y_tok.new_zeros(()))
     out = (y_tok.reshape(n, k, d) * weights[..., None].to(y_tok.dtype)
            ).sum(dim=1).reshape(b, t, d)
     if return_stats:

@@ -23,7 +23,12 @@ made one sequence chunk at a time. ``remat`` recomputes each superblock in
 the backward pass, keeping only the outputs of the plain 2-D products
 (``aten.mm``/``aten.addmm``): the JAX package's ``jax.checkpoint`` with
 ``dots_with_no_batch_dims_saveable``, so the experts' batched products
-(``bmm``) are recomputed, as there.
+(``bmm``) are recomputed, as there. It also keeps the outputs of the MoE
+router's ``topk`` (values and indices), so the recompute dispatches every
+token exactly as the forward did: a last-bit difference in a recomputed
+router logit at a near-tie would otherwise send a token to another expert
+and differentiate another routing than the loss's. In exact arithmetic
+this computes the same function.
 """
 
 from __future__ import annotations
@@ -199,10 +204,12 @@ def _apply_sub(p, cfg: ModelConfig, j: int, x, positions, cache, cache_index,
     return x, moe_load
 
 
-#: the remat policy: keep the outputs of the 2-D products, recompute the rest
+#: the remat policy: keep the outputs of the 2-D products and of the
+#: router's top-k, recompute the rest
 _SAVE_MATMULS = functools.partial(
     create_selective_checkpoint_contexts,
-    [torch.ops.aten.mm.default, torch.ops.aten.addmm.default])
+    [torch.ops.aten.mm.default, torch.ops.aten.addmm.default,
+     torch.ops.aten.topk.default])
 
 
 def _apply_group(gp, cfg: ModelConfig, x, positions, gcache, cache_index,

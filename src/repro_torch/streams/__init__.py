@@ -1,5 +1,5 @@
 """Stream-processing substrate: engine, operators, object, columnar and
-device state, state backends, multi-stage topologies, checkpointed recovery
+device state, state backends (the sharded one loaded on first use), multi-stage topologies, checkpointed recovery
 with deterministic failure injection, and the workload generator."""
 
 from .backends import (BACKENDS, ColumnarBackend, DeviceBackend,
@@ -38,4 +38,13 @@ __all__ = [
     "ChaosRunner", "DropDelivery", "DuplicateDelivery", "FaultPlan",
     "FaultInjector", "KillTask", "RecoveryEvent", "StallTask",
     "TaskKilled", "TaskStalled",
+    "ShardedDeviceBackend", "ShardedStateFleet",
 ]
+
+
+def __getattr__(name):
+    # the sharded backend loads torch.distributed: imported on first use
+    if name in ("ShardedDeviceBackend", "ShardedStateFleet"):
+        from . import sharded
+        return getattr(sharded, name)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

@@ -26,7 +26,7 @@ plus two classmethod selection hooks: :meth:`StateBackend.check` (raise
 backend?). Both take the stage's ``vectorized`` flag; ``auto_eligible``
 also takes its device. Auto resolution order is device > columnar > object.
 
-Three backends implement the protocol:
+Three backends implement the protocol here:
 
 * :class:`ObjectBackend` — dict-of-KeyState stores, per-task segment
   dispatch through ``Operator.process_batch``. Fully general: the only
@@ -44,6 +44,11 @@ Three backends implement the protocol:
   choice routers: its dense-dest table is keyed on ``assignment_version``,
   and a router's destinations are not a function of the key.
 
+A fourth, :class:`~.sharded.ShardedDeviceBackend` (``"sharded"``), is the
+device backend over the ranks of a ``torch.distributed`` group; its module
+is imported on first request (``_LAZY_BACKENDS``) and ``auto`` never picks
+it.
+
 The host-store backends and the device backend call the stage's
 failure-injection seam at ``"mid"`` (state mutated, no report yet; see
 :mod:`.faults`).
@@ -51,6 +56,7 @@ failure-injection seam at ``"mid"`` (state mutated, no report yet; see
 
 from __future__ import annotations
 
+import importlib
 from typing import Any, Dict, List, Optional, Sequence, Tuple, Type
 
 import numpy as np
@@ -79,6 +85,11 @@ class _SketchPending:
 SKETCH_PENDING = _SketchPending()
 
 
+#: backends whose module loads ``torch.distributed``: imported on first
+#: request, when the module registers itself
+_LAZY_BACKENDS = {"sharded": "repro_torch.streams.sharded"}
+
+
 def register_backend(cls: Type["StateBackend"]) -> Type["StateBackend"]:
     """Register a backend class under ``cls.name`` (usable as a decorator)."""
     if not getattr(cls, "name", None):
@@ -88,11 +99,13 @@ def register_backend(cls: Type["StateBackend"]) -> Type["StateBackend"]:
 
 
 def backend_names() -> Tuple[str, ...]:
-    """Every selectable ``state_backend`` value."""
-    return tuple(sorted(set(BACKENDS) | {"auto"}))
+    """Every selectable ``state_backend`` value (registered and lazy)."""
+    return tuple(sorted(set(BACKENDS) | set(_LAZY_BACKENDS) | {"auto"}))
 
 
 def get_backend(name: str) -> Type["StateBackend"]:
+    if name not in BACKENDS and name in _LAZY_BACKENDS:
+        importlib.import_module(_LAZY_BACKENDS[name])   # registers itself
     if name not in BACKENDS:
         raise ValueError(f"unknown state backend {name!r}; "
                          f"choose from {backend_names()}")

@@ -93,7 +93,7 @@ from .device import resolve_device
 from .operators import Operator
 
 SUBSTRATES = ("numpy", "kernels")
-STATE_BACKENDS = ("auto", "columnar", "object", "device")
+STATE_BACKENDS = ("auto", "columnar", "object", "device", "sharded")
 
 
 @dataclasses.dataclass
@@ -131,9 +131,15 @@ class KeyedStage:
         strategy is a table planner, the router is Hash32 and the stage
         runs on CUDA; else columnar when the operator has a
         ``columnar_spec`` and the stage is vectorized; else object).
+        ``"sharded"`` splits the device ring over the ranks of the
+        default ``torch.distributed`` group, one key block each
+        (explicit-only; see :mod:`repro_torch.streams.sharded`).
+      n_shards: the shard count of ``state_backend="sharded"``: ``None``
+        means the process group's size, and any other size raises.
+        Ignored by the other backends.
       device: where the device ring and the kernels run; ``None`` = CUDA.
-      device_domain_max: the device backend allocates dense state per key
-        id; ids at or above this bound raise.
+      device_domain_max: the device and sharded backends allocate dense
+        state per key id; ids at or above this bound raise.
       stats_dense_max: on the ``"kernels"`` substrate the stats kernel needs
         a dense key domain; larger domains take the numpy segment-sum.
     """
@@ -143,6 +149,7 @@ class KeyedStage:
                  micro_batches: int = 8, migration_batches: int = 2,
                  vectorized: bool = True,
                  substrate: str = "numpy", state_backend: str = "auto",
+                 n_shards: Optional[int] = None,
                  device=None, stats_dense_max: int = 1 << 20,
                  device_domain_max: int = 1 << 22, algorithm=None):
         if substrate not in SUBSTRATES:
@@ -166,6 +173,7 @@ class KeyedStage:
         self.window = window
         self.n_tasks = controller.assignment.n_dest
         self.device_domain_max = device_domain_max
+        self.n_shards = n_shards
         self.migration_bandwidth = migration_bandwidth
         self.micro_batches = micro_batches
         self.migration_batches = migration_batches

@@ -87,6 +87,7 @@ def keyed_stage(operator: Operator, n_tasks: int, theta_max: float, *,
                 table_max: int = 2_000, window: int = 2, seed: int = 0,
                 algorithm="mixed", hash_cls=ModHash, vectorized: bool = True,
                 substrate: str = "numpy", state_backend: str = "auto",
+                n_shards: Optional[int] = None,
                 device=None, migration_bandwidth: float = 1e6,
                 stats_mode: str = "exact",
                 sketch=None) -> KeyedStage:
@@ -96,8 +97,8 @@ def keyed_stage(operator: Operator, n_tasks: int, theta_max: float, *,
     pair, which is what per-stage rebalance requires — stages must never
     share a controller (their tables, Delta sets and trigger decisions are
     per-operator state, exactly as in the paper's per-operator protocol).
-    ``vectorized``/``substrate``/``state_backend``/``device`` pass straight
-    through to :class:`~repro_torch.streams.engine.KeyedStage`; the kernels
+    ``vectorized``/``substrate``/``state_backend``/``n_shards``/``device``
+    pass straight through to :class:`~repro_torch.streams.engine.KeyedStage`; the kernels
     and the device ring need ``hash_cls=Hash32`` (the default ``ModHash``
     is host only, as in the JAX package).
 
@@ -112,9 +113,9 @@ def keyed_stage(operator: Operator, n_tasks: int, theta_max: float, *,
     ``stats_mode``/``sketch`` pass straight through to
     :class:`~repro_torch.core.controller.RebalanceController`.
 
-    The JAX package's ``n_shards`` and ``kernel_interpret`` are not taken:
-    the sharded backend is not ported, and interpret mode is Pallas's (the
-    port's wrappers run their plain versions on CPU tensors instead).
+    The JAX package's ``kernel_interpret`` is not taken: interpret mode is
+    Pallas's (the port's wrappers run their plain versions on CPU tensors
+    instead).
     """
     controller = RebalanceController(
         Assignment(hash_cls(n_tasks, seed=seed)),
@@ -124,7 +125,7 @@ def keyed_stage(operator: Operator, n_tasks: int, theta_max: float, *,
         stats_mode=stats_mode, sketch=sketch)
     return KeyedStage(operator, controller, window=window,
                       vectorized=vectorized, substrate=substrate,
-                      state_backend=state_backend,
+                      state_backend=state_backend, n_shards=n_shards,
                       device=device, migration_bandwidth=migration_bandwidth)
 
 

@@ -15,8 +15,7 @@ an out-of-place update would need several such temporaries at once, and
 the step would not fit on one 80 GB card. Each slice computes the JAX
 package's expressions as written, so chunking changes no rounding.
 
-``opt_shardings`` (the optimizer state's mesh sharding) comes with the
-sharded slice.
+:func:`opt_shardings` lays the state out on a mesh as the parameters are.
 """
 
 from __future__ import annotations
@@ -124,3 +123,13 @@ def opt_update(grads, opt_state, params, cfg: OptConfig
             p.copy_(w_new)                    # the cast to the param dtype
     opt_state["step"] = step + 1
     return params, opt_state, {"grad_norm": gnorm, "lr": lr}
+
+
+def opt_shardings(param_shardings, mesh):
+    """The optimizer state's layout: the moments and the master mirror the
+    parameters' (a tree of :class:`~repro_torch.models.schema.Sharding`);
+    ``step`` is replicated."""
+    from ..models.schema import Sharding, placements_for
+    return {"m": param_shardings, "v": param_shardings,
+            "master": param_shardings,
+            "step": Sharding(mesh, (), placements_for((), mesh))}

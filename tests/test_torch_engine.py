@@ -278,6 +278,9 @@ def test_stage_validation():
     with pytest.raises(ValueError, match="substrate"):
         KeyedStage(WordCount(), c, substrate="pallas", device="cpu")
     with pytest.raises(ValueError, match="unknown state backend"):
+        KeyedStage(WordCount(), c, state_backend="tiled", device="cpu")
+    # the sharded backend exists, and needs the caller's process group
+    with pytest.raises(ValueError, match="process group"):
         KeyedStage(WordCount(), c, state_backend="sharded", device="cpu")
     assert KeyedStage(WordCount(), c, state_backend="object",
                       device="cpu").state_backend == "object"

@@ -4,7 +4,8 @@ runs with both blocked (the stream stage, a ``ChaosRunner`` interval with
 a kill and an ``AutoscaleLoop`` step on the device ring, a smoke serve
 step, an MoE smoke serve path, the serving engine, a keyed data pipeline
 interval, an MoE train step and one smoke forward of each of jamba,
-xlstm, whisper and internvl2), and its entry
+xlstm, whisper and internvl2, and a one-rank gloo sharded stage
+interval), and its entry
 points refuse to run without a CUDA device unless the caller asks for the
 CPU."""
 
@@ -153,6 +154,23 @@ for arch in ("jamba_1_5_large_398b", "xlstm_125m", "whisper_large_v3",
     assert hidden.shape == (2, 8 + (acfg.prefix_len if front.get(
         "pixel_embeds") is not None else 0), acfg.d_model), arch
     assert bool(torch.isfinite(hidden.float()).all()), arch
+import torch.distributed as dist
+import repro_torch.launch.mesh
+import repro_torch.sharding.ctx
+import repro_torch.sharding.rules
+with tempfile.TemporaryDirectory() as d:
+    dist.init_process_group("gloo", store=dist.FileStore(d + "/store", 1),
+                            rank=0, world_size=1)
+    try:
+        c = RebalanceController(Assignment(Hash32(4, seed=2)),
+                                BalanceConfig(theta_max=0.0, window=2))
+        s = KeyedStage(WordCount(), c, window=2, state_backend="sharded",
+                       substrate="kernels", device="cpu")
+        r = s.process_interval_arrays(np.arange(200, dtype=np.int64) % 37)
+        assert r.tuples == 200 and s.total_state_keys() == 37
+        assert s.backend.fleet.n_shards == 1
+    finally:
+        dist.destroy_process_group()
 assert not any(m == "jax" or m.startswith(("jax.", "repro."))
                for m in sys.modules if sys.modules[m] is not None)
 print("ok")
