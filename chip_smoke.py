@@ -149,6 +149,27 @@ It prints one JSON line per phase, each with its wall seconds:
 * ``train_archs`` — ``lm_loss`` and one float32 train step (2
   microbatches) of jamba, xlstm, whisper and internvl2 at smoke size on
   the card and on the CPU: finite, and within ``CARD_CPU_TOL``.
+* ``mesh`` — the model on DTensors under a device mesh
+  (``MeshPhaseConfig``): a one-rank (1, 1) ("data", "model") NCCL
+  ``DeviceMesh`` (the ``sharded`` phase's ``FileStore`` rendezvous),
+  granite-moe-3b-a800m at full width and depth from ``serve_moe``'s
+  weights, laid out by ``param_shardings`` (FSDP). (1) The cache-free
+  flash step at 4 x 2048 tokens under ``sharding.ctx.use_mesh``: the
+  flash kernel once per attention layer on the local shards, each launch
+  held against the plain version; its logits against the same step
+  without the mesh in this call (a one-rank mesh runs the same local
+  code, so the gap is expected to be 0; a nonzero gap is reported and
+  held to atol 0.3 / rtol 0.05). (2) The cached prefill and 16 greedy
+  tokens, on a cache laid out by ``cache_shardings``: the tokens must
+  equal the unsharded run's. (3) One float32 train step of 2
+  microbatches at full width cut to ``train_layers`` layers, against the
+  same step without the mesh within ``CARD_CPU_TOL``, at the ``train``
+  phase's 8 x 512 tokens, with the same routing (a routed entry that moved
+  fails the phase), returning every leaf in the placements it was given.
+  Read: the phase's wall time, each mesh step's time over the unsharded
+  step's (what DTensor dispatch costs), peak memory; row
+  ``flash_attention[global,mesh]``, timed on the q, k, v of the mesh
+  step's last flash launch.
 
 Then one ``{"kernels": [...]}`` line (per kernel and call site: launches on
 its path, max error, kernel/plain/library times and the bound), the card's
@@ -282,6 +303,28 @@ class TrainPhaseConfig:
     #: the card-against-CPU step (float32, ``resume_layers`` layers)
     cpu_batch: int = 2
     cpu_seq: int = 128
+
+
+@dataclasses.dataclass(frozen=True)
+class MeshPhaseConfig:
+    """The mesh deployment: granite-moe-3b-a800m at full width and depth
+    on a one-rank (1, 1) ("data", "model") mesh, from ``serve_moe``'s
+    weights (its seed), 4 requests of 2048 prompt tokens and 16 greedy
+    tokens; the train step at full width cut to ``train_layers`` layers
+    (the only cut), at the ``train`` phase's tokens, ``train_batch`` x
+    ``train_seq`` in 2 microbatches, float32."""
+
+    arch: str = "granite-moe-3b-a800m"
+    batch: int = 4
+    prompt: int = 2048
+    tokens: int = 16
+    seed: int = 0
+    atol: float = 0.3
+    rtol: float = 0.05
+    train_layers: int = 2
+    train_batch: int = 8
+    train_seq: int = 512
+    lr: float = 1e-3
 
 
 def emit(obj) -> None:
@@ -597,6 +640,18 @@ def phase_kernels(torch, cfg: Config, timer: Timer, dev):
 FLASH_ATOL = {"float32": 2e-5, "bfloat16": 2e-2}
 
 
+def flash_err_over_tol(torch, got, want, v) -> float:
+    """The flash kernel's largest error against its plain version over the
+    tolerance for a path's activations: ``FLASH_ATOL`` (set for unit-scale
+    inputs) times v's rms, since each output row is a weighted mean of v's
+    rows, plus one ulp of the output's dtype (<= 1 passes)."""
+    want = want.float()
+    tol = (FLASH_ATOL[str(v.dtype).split(".")[-1]]
+           * float(v.float().pow(2).mean().sqrt())
+           + torch.finfo(v.dtype).eps * want.abs())
+    return float(((got.float() - want).abs() / tol).max())
+
+
 def admitted_pairs(t: int, s: int, causal: bool, window: int) -> int:
     """(query, key) pairs the mask admits for one head: the work the
     attention needs (queries right-aligned against the keys)."""
@@ -668,23 +723,28 @@ def phase_flash(torch, scfg: ServeConfig, mcfg: "MoeServeConfig",
 
 
 def flash_row(torch, timer: Timer, name: str, cfg, b: int, t: int,
-              window: int, seed: int, dev, edge: float) -> dict:
+              window: int, seed: int, dev, edge: float,
+              qkv: tuple = None) -> dict:
     """The flash kernel at ``cfg``'s heads on a (b, t) causal prompt against
     its plain version: the row of the ``kernels`` line, with the kernel's,
     the plain version's and SDPA's times and the bound (launches are added
-    by ``main``)."""
+    by ``main``). The inputs are random from ``seed``, or ``qkv``: the
+    tensors a path handed the kernel."""
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention, flash_attention_plain
     hq, hkv, d = cfg.n_heads, cfg.n_kv_heads, cfg.hd
     s = t
-    q, k, v = _flash_inputs(torch, (b, hq, hkv, t, s, d), torch.bfloat16,
-                            dev, seed)
+    q, k, v = qkv or _flash_inputs(torch, (b, hq, hkv, t, s, d),
+                                   torch.bfloat16, dev, seed)
     got = flash_attention(q, k, v, causal=True, window=window)
     want = flash_attention_plain(q, k, v, causal=True, window=window)
     err = float((got.float() - want.float()).abs().max())
-    if err > FLASH_ATOL["bfloat16"]:
+    # random inputs are unit-scale; a path's are held as FlashSpy holds them
+    over = (err / FLASH_ATOL["bfloat16"] if qkv is None
+            else flash_err_over_tol(torch, got, want, v))
+    if over > 1:
         raise AssertionError(f"{name}: kernel off its plain version by "
-                             f"{err}")
+                             f"{err} ({over} of its tolerance)")
     if window:
         pos = torch.arange(t, device=dev)
         mask = (pos[None] <= pos[:, None]) & \
@@ -1762,9 +1822,7 @@ class FlashSpy:
     """While installed (``with``), stands in for the flash wrapper that
     ``models.attention`` calls: counts each call by window and, while
     ``check`` is set, holds its output against the plain version on the same
-    q, k, v. Tolerance: the JAX package's (2e-5 f32, 2e-2 bf16 at unit-scale
-    inputs) times v's rms, since each output row is a weighted mean of v's
-    rows, plus one ulp of the output's dtype."""
+    q, k, v (:func:`flash_err_over_tol`)."""
 
     def __init__(self, torch):
         from repro_torch.models import attention as attn_mod
@@ -1775,6 +1833,8 @@ class FlashSpy:
         self.check = False
         self.errs: list = []
         self.ratios: list = []
+        #: the last call's (q, k, v)
+        self.last = None
 
     def __enter__(self):
         self.attn_mod.flash_attention = self
@@ -1786,16 +1846,13 @@ class FlashSpy:
     def __call__(self, q, k, v, causal=True, window=0):
         from repro_torch.kernels import flash_attention_plain
         self.calls[window] = self.calls.get(window, 0) + 1
+        self.last = (q, k, v)
         o = self.wrapped(q, k, v, causal=causal, window=window)
         if self.check:
             want = flash_attention_plain(q, k, v, causal=causal,
                                          window=window).float()
-            err = (o.float() - want).abs()
-            tol = (FLASH_ATOL[str(q.dtype).split(".")[-1]]
-                   * float(v.float().pow(2).mean().sqrt())
-                   + self.torch.finfo(q.dtype).eps * want.abs())
-            self.errs.append(float(err.max()))
-            self.ratios.append(float((err / tol).max()))
+            self.errs.append(float((o.float() - want).abs().max()))
+            self.ratios.append(flash_err_over_tol(self.torch, o, want, v))
         return o
 
     def per_call(self) -> dict:
@@ -2658,6 +2715,31 @@ SHARDED_INTERVALS = 8
 SHARDED_REPLAY = 2
 
 
+def one_rank_group(dev):
+    """A one-rank default process group for the body of a ``with``: NCCL
+    on the card, gloo on the CPU, rendezvous through a ``FileStore`` in a
+    temporary directory (no network)."""
+    import contextlib
+    import datetime
+    import os
+    import tempfile
+
+    import torch.distributed as dist
+
+    @contextlib.contextmanager
+    def group():
+        with tempfile.TemporaryDirectory() as tmp:
+            dist.init_process_group(
+                "nccl" if dev.type == "cuda" else "gloo",
+                store=dist.FileStore(os.path.join(tmp, "store"), 1), rank=0,
+                world_size=1, timeout=datetime.timedelta(seconds=300))
+            try:
+                yield
+            finally:
+                dist.destroy_process_group()
+    return group()
+
+
 def phase_sharded(cfg: Config, device, sync, trace: list) -> tuple:
     """The stream cell's deployment on ``state_backend="sharded"`` (the
     routing kernel on the ``"kernels"`` substrate) over a one-rank process
@@ -2673,10 +2755,6 @@ def phase_sharded(cfg: Config, device, sync, trace: list) -> tuple:
     stage's padded capacity and this rank's key-block length, for the
     kernel's row, and the routing launches of the sharded stage's
     intervals); ``main`` checks the launches."""
-    import datetime
-    import os
-    import tempfile
-
     import torch
     import torch.distributed as dist
     dev = torch.device(device)
@@ -2691,17 +2769,12 @@ def phase_sharded(cfg: Config, device, sync, trace: list) -> tuple:
         collective_ms.append((time.perf_counter() - t0) * 1e3)
         return work
 
-    with tempfile.TemporaryDirectory() as tmp:
-        dist.init_process_group(
-            "nccl" if dev.type == "cuda" else "gloo",
-            store=dist.FileStore(os.path.join(tmp, "store"), 1), rank=0,
-            world_size=1, timeout=datetime.timedelta(seconds=300))
+    with one_rank_group(dev):
         dist.all_to_all_single = timed_a2a
         try:
             return _drive_sharded(cfg, device, sync, trace, collective_ms)
         finally:
             dist.all_to_all_single = a2a
-            dist.destroy_process_group()
 
 
 def _drive_sharded(cfg: Config, device, sync, trace: list,
@@ -3094,6 +3167,197 @@ def phase_train_archs(torch, dev, sync, seed: int = 0) -> dict:
     return {"smoke_card_vs_cpu": out, "tolerance": CARD_CPU_TOL}
 
 
+# -- the model on a device mesh ------------------------------------------------
+
+def phase_mesh(torch, cfg, mcfg: MeshPhaseConfig, device, sync) -> dict:
+    """The serve and train steps of the model ``cfg`` on DTensors under a
+    one-rank (1, 1) ("data", "model") mesh on ``device`` (a smoke config on
+    the CPU rehearses it), each against the same step without the mesh in
+    this call (see the module docstring). ``launches`` holds the flash
+    counter's rise in the mesh's cache-free step; ``main`` checks it."""
+    from repro_torch.kernels import flash_attention
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.serve import init_request
+    from repro_torch.models import init_cache, schema
+    from repro_torch.models.schema import tree_map
+    from repro_torch.models.transformer import cache_schema, model_schema
+    from repro_torch.sharding import ctx, rules
+    from repro_torch.train import (OptConfig, make_train_step, opt_init,
+                                   opt_shardings)
+    from repro_torch.train.train_step import make_serve_step
+
+    dev = torch.device(device)
+    n_layers, e = cfg.n_layers, cfg.moe_experts
+    out = {"arch": cfg.name, "mesh": {"shape": [1, 1],
+                                      "axes": ["data", "model"],
+                                      "backend": "nccl" if dev.type == "cuda"
+                                      else "gloo"},
+           "n_layers": n_layers, "batch": mcfg.batch, "prompt": mcfg.prompt,
+           "new_tokens": mcfg.tokens}
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    with one_rank_group(dev):
+        mesh = make_mesh((1, 1), ("data", "model"), device_type=dev.type)
+
+        def on_mesh(step):
+            def run(*args):
+                with ctx.use_mesh(mesh):
+                    logits, cache = step(*args)
+                return logits.full_tensor(), cache
+            return run
+
+        params, prompt = init_request(
+            cfg, mcfg.batch, mcfg.prompt, dev,
+            torch.Generator(device=dev).manual_seed(mcfg.seed))
+        batch = {"tokens": prompt}
+        ident = torch.arange(e, dtype=torch.int32, device=dev).repeat(
+            n_layers, 1)
+        dparams = schema.distribute(
+            params, rules.param_shardings(model_schema(cfg), mesh))
+        out["param_placements"] = sorted(
+            {str(tuple(p.placements)) for p in _leaves(dparams)})
+
+        # (1) the cache-free flash step, without and with the mesh
+        flash = make_serve_step(cfg, use_flash=True)
+        flash(params, None, batch, 0, ident)
+        (plain, _), plain_s = timed(
+            sync, lambda: flash(params, None, batch, 0, ident))
+        plain = plain.float()
+        mesh_flash = on_mesh(flash)
+        with FlashSpy(torch) as spy:
+            spy.check = True
+            mesh_flash(dparams, None, batch, 0, ident)
+            spy.check = False
+            spy.calls.clear()
+            flash_attention.launches = 0
+            (got, _), mesh_s = timed(
+                sync, lambda: mesh_flash(dparams, None, batch, 0, ident))
+            launches = flash_attention.launches
+            # the last layer's local q, k, v, which the kernel row times
+            flash_inputs = spy.last
+            calls = {str(w): n for w, n in sorted(spy.calls.items())}
+            per_call = spy.per_call()
+        if per_call["worst_err_over_tol"] > 1:
+            raise AssertionError(f"flash off its plain version on the "
+                                 f"mesh's local shards: {per_call}")
+        got = got.float()
+        gap = float((got - plain).abs().max())
+        out["cache_free"] = {
+            "plain_s": plain_s, "mesh_s": mesh_s,
+            "mesh_over_plain": mesh_s / plain_s,
+            "max_abs_gap": gap, "bit_identical": gap == 0.0,
+            "flash_calls": calls, "flash_vs_plain_per_call": per_call}
+        if gap:
+            torch.testing.assert_close(got, plain, atol=mcfg.atol,
+                                       rtol=mcfg.rtol)
+
+        # (2) the cached prefill and greedy decode, without and with it
+        seq = mcfg.prompt + mcfg.tokens
+        step = make_serve_step(cfg)
+        runs = {}
+        for name, p, run, cache in (
+                ("plain", params, step, lambda: init_cache(
+                    cfg, mcfg.batch, seq, dev)),
+                ("mesh", dparams, on_mesh(step), lambda: schema.distribute(
+                    init_cache(cfg, mcfg.batch, seq, dev),
+                    rules.cache_shardings(cache_schema(cfg, mcfg.batch, seq),
+                                          mesh, mcfg.batch)))):
+            first, prefill_s, decode_ms, greedy = cached_greedy(
+                torch, run, p, cache(), batch, mcfg.tokens, sync, ident)
+            runs[name] = (first.float(), prefill_s, decode_ms, greedy)
+        (fp, pp, dp, gp), (fm, pm, dm, gm) = runs["plain"], runs["mesh"]
+        out["decode"] = {
+            "prefill_s": [pp, pm], "prefill_mesh_over_plain": pm / pp,
+            "decode_ms_median": [statistics.median(dp),
+                                 statistics.median(dm)],
+            "decode_mesh_over_plain": statistics.median(dm)
+            / statistics.median(dp),
+            "prefill_max_abs_gap": float((fm - fp).abs().max()),
+            "greedy_identical": bool((gm == gp).all()),
+            "greedy_tokens": gm.tolist()}
+        if not out["decode"]["greedy_identical"]:
+            raise AssertionError(f"the mesh's greedy tokens differ from the "
+                                 f"unsharded run's: {gm.tolist()} against "
+                                 f"{gp.tolist()}")
+        del params, dparams, runs
+
+        # (3) one float32 train step at reduced depth, without and with it
+        ccfg = dataclasses.replace(cfg, n_layers=mcfg.train_layers)
+        if torch.backends.cuda.matmul.allow_tf32:
+            raise AssertionError("TF32 matmuls are on")
+        gen = torch.Generator().manual_seed(mcfg.seed + 3)
+        weights = tree_map(lambda a: a.float(),
+                           schema.init(model_schema(ccfg), gen, "cpu"))
+        toks = torch.randint(0, cfg.vocab,
+                             (mcfg.train_batch, mcfg.train_seq + 1),
+                             generator=gen)
+        tbatch = {"tokens": toks[:, :-1].to(dev), "labels": toks[:, 1:].to(dev)}
+        ocfg = OptConfig(lr=mcfg.lr, warmup_steps=2, total_steps=6)
+        tstep = make_train_step(ccfg, ocfg, microbatches=2, collect_moe=True)
+        shard = rules.param_shardings(model_schema(ccfg), mesh)
+        train = {}
+        for name in ("plain", "mesh"):
+            on = name == "mesh"
+            full = (lambda t: t.full_tensor()) if on else (lambda t: t)
+            p = tree_map(lambda a: a.to(dev, copy=True), weights)
+            p = schema.distribute(p, shard) if on else p
+            st = opt_init(p)
+            layout = lambda: [str(tuple(x.placements))
+                              for x in _leaves(p) + _leaves(st)]
+            before = layout() if on else None
+            with ctx.use_mesh(mesh if on else None):
+                (p, st, m), first_s = timed(sync,
+                                            lambda: tstep(p, st, tbatch))
+                rec = {"loss": float(m["loss"]),
+                       "grad_norm": float(m["grad_norm"]),
+                       "loads": m["expert_load"].cpu(),
+                       "master": [full(x).to("cpu", copy=True)
+                                  for x in _leaves(st["master"])],
+                       "first_s": first_s}
+                if on:
+                    rec["placements_kept"] = layout() == before
+                    rec["opt_layout"] = all(
+                        tuple(x.placements) == tuple(s_.placements)
+                        for x, s_ in zip(_leaves(st["master"]), _leaves(
+                            opt_shardings(shard, mesh)["master"])))
+                # a second step, timed alone (the first warms up)
+                _, rec["step_s"] = timed(sync, lambda: tstep(p, st, tbatch))
+            train[name] = rec
+        gap = max(float((x - y).abs().max()) for x, y in
+                  zip(train["mesh"]["master"], train["plain"]["master"]))
+        a, b = train["mesh"], train["plain"]
+        # one rank runs the same local code on the same card: the routing
+        # must be the unsharded step's (C11, C14), so a routed entry that
+        # moved fails the phase, and the loss is held regardless
+        moved = ((a["loads"] - b["loads"]).abs().sum(-1) / 2)
+        moved = moved.reshape(-1).tolist()
+        if any(moved):
+            raise AssertionError(f"the mesh's train step routed otherwise "
+                                 f"than the unsharded step: {moved}")
+        out["train"] = {
+            "n_layers": ccfg.n_layers, "batch": mcfg.train_batch,
+            "seq": mcfg.train_seq, "dtype": "float32",
+            "tolerance": CARD_CPU_TOL, "loss": [a["loss"], b["loss"]],
+            "grad_norm": [a["grad_norm"], b["grad_norm"]],
+            "routed_entries_differing_per_layer": moved,
+            "master_max_abs_gap": gap,
+            "step_s": [a["step_s"], b["step_s"]],
+            "mesh_over_plain": a["step_s"] / b["step_s"],
+            "placements_kept": a["placements_kept"],
+            "opt_layout": a["opt_layout"],
+            "within_tolerance": {
+                "loss": abs(a["loss"] - b["loss"])
+                <= CARD_CPU_TOL["loss_rtol"] * abs(b["loss"]),
+                "grad_norm": abs(a["grad_norm"] - b["grad_norm"])
+                <= CARD_CPU_TOL["grad_norm_rtol"] * abs(b["grad_norm"]),
+                "master": gap <= CARD_CPU_TOL["master_atol_lr"] * ocfg.lr}}
+    out["launches"] = {"cache_free_flash": launches}
+    out["flash_inputs"] = flash_inputs
+    if dev.type == "cuda":
+        out["device_memory_peak_bytes"] = torch.cuda.max_memory_allocated()
+    return out
+
+
 def main() -> int:
     try:
         import torch
@@ -3381,6 +3645,39 @@ def main() -> int:
         raise AssertionError(f"a smoke train step on the card is off the "
                              f"CPU's: {off}")
 
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    mesh_cfg = MeshPhaseConfig()
+    flash_attention.launches = 0
+    mesh = phase_mesh(torch, get_config(mesh_cfg.arch), mesh_cfg, "cuda",
+                      sync)
+    mesh_flash = mesh["launches"]["cache_free_flash"]
+    if mesh_flash != mesh["n_layers"] or \
+            mesh["cache_free"]["flash_calls"] != {"0": mesh["n_layers"]}:
+        raise AssertionError(f"the mesh's cache-free step did not launch "
+                             f"the flash kernel once per layer: "
+                             f"{mesh_flash}, {mesh['cache_free']}")
+    if not (all(mesh["train"]["within_tolerance"].values())
+            and mesh["train"]["placements_kept"]
+            and mesh["train"]["opt_layout"]):
+        raise AssertionError(f"the mesh's train step is off the unsharded "
+                             f"step's: {mesh['train']}")
+    timer = Timer(torch, cfg.reps)
+    mc = get_config(mesh_cfg.arch)
+    q, k, v = mesh.pop("flash_inputs")
+    if q.shape[0] != mesh_cfg.batch or q.shape[1] != mc.n_heads or \
+            k.shape[1] != mc.n_kv_heads:
+        raise AssertionError(f"the mesh's flash inputs are not the one "
+                             f"rank's whole batch and heads: {q.shape}, "
+                             f"{k.shape}")
+    # timed on the last layer's q, k, v as the mesh step handed them over
+    rows.append(flash_row(torch, timer, "flash_attention[global,mesh]", mc,
+                          mesh_cfg.batch, mesh_cfg.prompt, 0, mesh_cfg.seed,
+                          torch.device("cuda"), edge, qkv=(q, k, v)))
+    del timer, q, k, v
+    emit({"phase": "mesh", **mesh, "kernel_rows": rows[-1:],
+          "card": nvidia_smi_line(), "seconds": time.perf_counter() - t0})
+
     launches = {"routing_lookup[dense]": main_launches["route_keys"],
                 "routing_lookup[dense,sketch]": sketch_launches,
                 "routing_lookup[dense,topology]":
@@ -3404,7 +3701,8 @@ def main() -> int:
                 "routing_lookup[dense,large_table]": large_launches,
                 "routing_lookup[dense,sharded]": sharded_launches,
                 **{f"flash_attention[global,{a}]": n
-                   for a, n in arch_flash.items() if n}}
+                   for a, n in arch_flash.items() if n},
+                "flash_attention[global,mesh]": mesh_flash}
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     emit({"kernels": [{k: {**row, "launches": launches[row["name"]]}[k]

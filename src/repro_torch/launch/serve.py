@@ -11,12 +11,17 @@ placer per layer, and every step takes their placements.
   PYTHONPATH=src python -m repro_torch.launch.serve \\
       --arch whisper-large-v3 --device cpu
 
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-7b \\
+      --mode lower --shape decode_32k --mesh single
+
 The CLI runs the arch's smoke config, as the JAX launcher does; callers
 with a card pass a full config to :func:`serve_local`. An audio arch
 (whisper) gets random stub frames, encoded once for the prefill and all
 decode steps; a vision arch (internvl2) a random prefix of pixel
-embeddings, which the cache and the decode index make room for. The JAX
-launcher's ``--mode lower`` (XLA lowering for a TPU mesh) is not ported.
+embeddings, which the cache and the decode index make room for.
+``serve_local(mesh=...)`` runs every step on DTensors under a device mesh
+(``sharding.ctx.use_mesh``). ``--mode lower`` prints the full config's
+dry run (:func:`repro_torch.launch.dryrun.lower_cell`).
 """
 
 from __future__ import annotations
@@ -28,10 +33,11 @@ import numpy as np
 import torch
 
 from ..configs import smoke_config
-from ..models import init_cache, model_schema, schema
+from ..models import cache_schema, init_cache, model_schema, schema
 from ..models.transformer import encode
 from ..models.config import ModelConfig
 from ..models.skewshield import SkewShieldPlacer, placements_array
+from ..sharding import ctx
 from ..streams.device import resolve_device
 from ..train.train_step import make_serve_step
 
@@ -77,7 +83,7 @@ def moe_placers(cfg: ModelConfig) -> List[SkewShieldPlacer]:
 
 def serve_local(cfg: ModelConfig, batch: int = 2, prompt: int = 16,
                 tokens: int = 16, device=None,
-                generator: Optional[torch.Generator] = None
+                generator: Optional[torch.Generator] = None, mesh=None
                 ) -> Tuple[torch.Tensor, np.ndarray]:
     """Prefill a random ``batch`` x ``prompt`` request through the KV cache,
     then decode ``tokens`` greedy tokens, one step each. Attention with a
@@ -92,6 +98,12 @@ def serve_local(cfg: ModelConfig, batch: int = 2, prompt: int = 16,
     step takes the ``encoder_out``. ``device=None`` means the CUDA card
     and raises without one. Returns the prefill's next-token logits
     (batch, 1, vocab_padded) and the greedy tokens (batch, tokens) int64.
+
+    With ``mesh`` (a ``DeviceMesh`` over the default process group, each
+    rank calling with the same seed) the weights are laid out by
+    ``param_shardings`` (FSDP on "data"), the cache by ``cache_shardings``
+    and every step runs under ``sharding.ctx.use_mesh``; the returned
+    logits are gathered whole.
     """
     dev = resolve_device(device)
     if generator is None:
@@ -102,10 +114,20 @@ def serve_local(cfg: ModelConfig, batch: int = 2, prompt: int = 16,
         with torch.inference_mode():
             front = {"encoder_out": encode(params, cfg, front["frames"])}
     prefix = cfg.prefix_len if "pixel_embeds" in front else 0
-    serve_step = make_serve_step(cfg)
     placers = moe_placers(cfg)
     placements = placements_array(placers, dev) if placers else None
     cache = init_cache(cfg, batch, prefix + prompt + tokens, dev)
+    step = make_serve_step(cfg)
+    if mesh is not None:
+        params, cache = _lay_out(cfg, params, cache, batch,
+                                 prefix + prompt + tokens, mesh)
+
+    def serve_step(*args):
+        with ctx.use_mesh(mesh):
+            logits, new_cache = step(*args)
+        return (logits.full_tensor() if mesh is not None else logits,
+                new_cache)
+
     logits, cache = serve_step(params, cache,
                                {"tokens": prompt_tokens, **front}, 0,
                                placements)
@@ -124,9 +146,23 @@ def serve_local(cfg: ModelConfig, batch: int = 2, prompt: int = 16,
     return first, greedy
 
 
+def _lay_out(cfg: ModelConfig, params, cache, batch: int, max_seq: int,
+             mesh):
+    """The weights and the cache as DTensors on ``mesh``, by the sharding
+    rules."""
+    from ..sharding import rules
+    return (schema.distribute(params, rules.param_shardings(
+                model_schema(cfg), mesh)),
+            schema.distribute(cache, rules.cache_shardings(
+                cache_schema(cfg, batch, max_seq), mesh, batch)))
+
+
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--arch", required=True)
+    ap.add_argument("--mode", choices=["local", "lower"], default="local")
+    ap.add_argument("--shape", default="decode_32k")
+    ap.add_argument("--mesh", choices=["single", "multi"], default="single")
     ap.add_argument("--batch", type=int, default=2)
     ap.add_argument("--prompt", type=int, default=16)
     ap.add_argument("--tokens", type=int, default=16)
@@ -134,6 +170,12 @@ def main(argv=None) -> None:
                     help="torch device (default: the CUDA card)")
     args = ap.parse_args(argv)
     arch = args.arch.replace("-", "_")
+    if args.mode == "lower":
+        import json
+
+        from .dryrun import lower_cell
+        print(json.dumps(lower_cell(arch, args.shape, args.mesh), indent=1))
+        return
     _, greedy = serve_local(smoke_config(arch), args.batch, args.prompt,
                             args.tokens, device=args.device)
     print(f"{arch}: decoded {args.tokens} tokens x batch {args.batch}")

@@ -6,11 +6,13 @@ checkpoints -> SkewShield for MoE archs).
   PYTHONPATH=src python -m repro_torch.launch.train \\
       --arch granite-moe-3b-a800m --device cpu --steps 3
   PYTHONPATH=src python -m repro_torch.launch.train --arch granite-8b
+  PYTHONPATH=src python -m repro_torch.launch.train --arch granite-8b \\
+      --mode lower --shape train_4k --mesh multi
 
 ``--device`` defaults to the CUDA card. A run resumes from the newest
-checkpoint in ``--ckpt`` when there is one. Not ported: the JAX launcher's
-``--mode lower`` (XLA lowering for a TPU mesh, ROADMAP A9) and its
-``REPRO_PERF_*`` flags, which steer XLA.
+checkpoint in ``--ckpt`` when there is one. ``--mode lower`` prints the
+full config's dry run (:func:`repro_torch.launch.dryrun.lower_cell`). Not
+ported: the JAX launcher's ``REPRO_PERF_*`` flags, which steer XLA.
 """
 
 from __future__ import annotations
@@ -43,6 +45,9 @@ def frontend_batch(cfg, batch: int, step: int) -> dict:
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--arch", required=True)
+    ap.add_argument("--mode", choices=["local", "lower"], default="local")
+    ap.add_argument("--shape", default="train_4k")
+    ap.add_argument("--mesh", choices=["single", "multi"], default="single")
     ap.add_argument("--steps", type=int, default=20)
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--seq", type=int, default=128)
@@ -52,6 +57,12 @@ def main(argv=None) -> None:
                     help="torch device (default: the CUDA card)")
     args = ap.parse_args(argv)
     arch = args.arch.replace("-", "_")
+    if args.mode == "lower":
+        import json
+
+        from .dryrun import lower_cell
+        print(json.dumps(lower_cell(arch, args.shape, args.mesh), indent=1))
+        return
 
     cfg = smoke_config(arch)
     pipe = KeyedDataPipeline(zipf_sources(32, z=1.0), n_workers=1,

@@ -107,7 +107,7 @@ def attn(p, cfg: ModelConfig, x: torch.Tensor, positions: torch.Tensor,
          window: int = 0, causal: bool = True,
          cache: Optional[dict] = None, cache_index: int = 0,
          kv_source: Optional[torch.Tensor] = None, use_rope: bool = True,
-         use_flash: bool = False
+         use_flash: bool = False, kv_heads: Optional[torch.Tensor] = None
          ) -> Tuple[torch.Tensor, Optional[dict]]:
     """Self- or cross-attention over ``x`` (B, T, D) at ``positions``.
 
@@ -118,18 +118,35 @@ def attn(p, cfg: ModelConfig, x: torch.Tensor, positions: torch.Tensor,
     encoder output, makes it cross-attention: K and V come from it, with no
     RoPE and no cache, and never through the flash kernel (the JAX
     package's rule); the caller passes ``causal=False``.
+
+    ``kv_heads`` (one KV head index per query head) picks each query
+    head's K/V after the cache: a tensor-parallel rank that holds some of
+    the query heads but all the KV heads (``models.transformer``).
     """
-    hq, hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.hd
-    b, t, _ = x.shape
     src = x if kv_source is None else kv_source
-    q = dot(x, p["wq"])
-    k = dot(src, p["wk"])
-    v = dot(src, p["wv"])
+    return attend(p, cfg, dot(x, p["wq"]), dot(src, p["wk"]),
+                  dot(src, p["wv"]), positions, window=window, causal=causal,
+                  cache=cache, cache_index=cache_index,
+                  cross=kv_source is not None, use_rope=use_rope,
+                  use_flash=use_flash, kv_heads=kv_heads)
+
+
+def attend(p, cfg: ModelConfig, q: torch.Tensor, k: torch.Tensor,
+           v: torch.Tensor, positions: torch.Tensor, window: int = 0,
+           causal: bool = True, cache: Optional[dict] = None,
+           cache_index: int = 0, cross: bool = False, use_rope: bool = True,
+           use_flash: bool = False, kv_heads: Optional[torch.Tensor] = None
+           ) -> Tuple[torch.Tensor, Optional[dict]]:
+    """:func:`attn` from the projections ``q`` (B, T, Hq*Dh), ``k`` and
+    ``v`` (B, S, Hkv*Dh) on: the biases, RoPE, the cache, the attention
+    and the output projection (``cross``: K/V from an encoder)."""
+    hq, hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    b, t, _ = q.shape
     if "bq" in p:
         q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
     qh = _split_heads(q, hq, dh)
     kh = _split_heads(k, hkv, dh)
-    if use_rope and kv_source is None:
+    if use_rope and not cross:
         qh = rope(qh, positions, cfg.rope_theta)
         kh = rope(kh, positions, cfg.rope_theta)
     qt = qh.transpose(1, 2)
@@ -142,12 +159,16 @@ def attn(p, cfg: ModelConfig, x: torch.Tensor, positions: torch.Tensor,
         new_cache = cache
         k_full = cache["k"].reshape(b, -1, hkv, dh).transpose(1, 2)
         v_full = cache["v"].reshape(b, -1, hkv, dh).transpose(1, 2)
+        if kv_heads is not None:
+            k_full, v_full = k_full[:, kv_heads], v_full[:, kv_heads]
         out = _xla_attention(qt, k_full, v_full, causal=True, window=window,
                              q_positions=positions, kv_valid_len=idx + t)
     else:
         k_full = kh.transpose(1, 2)
         v_full = _split_heads(v, hkv, dh).transpose(1, 2)
-        if use_flash and causal and kv_source is None:
+        if kv_heads is not None:
+            k_full, v_full = k_full[:, kv_heads], v_full[:, kv_heads]
+        if use_flash and causal and not cross:
             out = flash_attention(qt, k_full, v_full, causal=True,
                                   window=window)
         else:

@@ -43,6 +43,8 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from ..sharding import ctx as shard_ctx
+from ..sharding.local import Local, replicated
 from .config import ModelConfig
 from .schema import ParamSpec
 
@@ -98,26 +100,19 @@ class _DispatchGather(torch.autograd.Function):
         return parts.sum(dim=1), None, None, None
 
 
-def moe(p, cfg: ModelConfig, x: torch.Tensor,
-        placement: Optional[torch.Tensor] = None,
-        return_stats: bool = False):
-    """x: (B, T, D) -> (B, T, D) [, stats].
-
-    placement: (E,) integer tensor on ``x``'s device, the physical slot of
-    each logical expert (SkewShield F(e); None = the identity). The expert
-    weights are stored by physical slot. With ``return_stats`` also returns
-    ``{"expert_load": (E,) float32 entries per physical slot, "dropped":
-    entries ranked >= cap}``.
-    """
-    b, t, d = x.shape
+def _route(router, cfg: ModelConfig, xf: torch.Tensor,
+           placement: Optional[torch.Tensor]) -> dict:
+    """Steps 1-3 and the dispatch buffer's gather over the N token rows of
+    ``xf``: {"xs": (E, cap, D), "weights": (N, k) gate weights, "src":
+    each (token, slot) entry's row in the flat buffer, "entry_served",
+    "count": entries per physical slot, "rank_sorted"}."""
+    n, d = xf.shape
     e, k = cfg.moe_experts, cfg.moe_topk
-    n = b * t
     nk = n * k
     cap = capacity_for(n, cfg)
-    dev = x.device
-    xf = x.reshape(n, d)
+    dev = xf.device
 
-    gates = xf.to(torch.float32) @ p["router"]               # (N, E)
+    gates = xf.to(torch.float32) @ router                    # (N, E)
     top_vals, top_idx = torch.topk(gates, k, dim=-1)         # (N, k)
     weights = torch.softmax(top_vals, dim=-1)
 
@@ -147,19 +142,92 @@ def moe(p, cfg: ModelConfig, x: torch.Tensor,
     entry_served = _served(rank_of, count[flat_e], cap)
     xs = _DispatchGather.apply(xf, dispatch, src.reshape(n, k),
                                entry_served.reshape(n, k))  # (E, cap, D)
+    return {"xs": xs, "weights": weights, "src": src,
+            "entry_served": entry_served, "count": count,
+            "rank_sorted": rank_sorted}
 
+
+def _experts(p, xs: torch.Tensor) -> torch.Tensor:
+    """The expert FFNs over the (E, cap, D) buffer, batched."""
     gate_h = F.silu(torch.bmm(xs, p["w_gate"]))
     up_h = torch.bmm(xs, p["w_up"])
-    ys = torch.bmm(gate_h * up_h, p["w_down"])               # (E, cap, D)
+    return torch.bmm(gate_h * up_h, p["w_down"])             # (E, cap, D)
 
-    # combine: each (token, slot) entry gathers its expert's output back
-    y_tok = ys.reshape(e * cap, d)[src]
-    y_tok = torch.where(entry_served[:, None], y_tok, y_tok.new_zeros(()))
-    out = (y_tok.reshape(n, k, d) * weights[..., None].to(y_tok.dtype)
-           ).sum(dim=1).reshape(b, t, d)
+
+def _combine(ys: torch.Tensor, r: dict, k: int) -> torch.Tensor:
+    """Each (token, slot) entry gathers its expert's output back, weighted
+    by its gate; (N, D)."""
+    e, cap, d = ys.shape
+    y_tok = ys.reshape(e * cap, d)[r["src"]]
+    y_tok = torch.where(r["entry_served"][:, None], y_tok,
+                        y_tok.new_zeros(()))
+    return (y_tok.reshape(-1, k, d) * r["weights"][..., None].to(y_tok.dtype)
+            ).sum(dim=1)
+
+
+def _stats(r: dict, cap: int) -> dict:
+    return {"expert_load": r["count"].to(torch.float32),
+            "dropped": (r["rank_sorted"] >= cap).sum()}
+
+
+def moe(p, cfg: ModelConfig, x: torch.Tensor,
+        placement: Optional[torch.Tensor] = None,
+        return_stats: bool = False):
+    """x: (B, T, D) -> (B, T, D) [, stats].
+
+    placement: (E,) integer tensor on ``x``'s device, the physical slot of
+    each logical expert (SkewShield F(e); None = the identity). The expert
+    weights are stored by physical slot. With ``return_stats`` also returns
+    ``{"expert_load": (E,) float32 entries per physical slot, "dropped":
+    entries ranked >= cap}``.
+
+    ``x`` and ``p`` may be DTensors on a mesh (ROADMAP A7b); the layer
+    then carries the JAX package's pins on its one dispatch group (the
+    leading dim of 1 here as there), and on plain tensors every pin and
+    layout below is the identity:
+
+    * ``xf`` is pinned "dp" on the size-1 group dim, which resolves to
+      replicated (or a split over data axes of size 1): every rank routes
+      all N tokens, so the capacity, the top-k, the stable sort and
+      ``_served`` see the whole batch, as the unsharded layer does, and
+      the routing is the same. None of these ops (nor ``_DispatchGather``)
+      has a DTensor sharding strategy; they run as one local call on the
+      replicated tokens and router.
+    * the dispatch buffer ``xs`` and the expert outputs ``ys`` are pinned
+      ("dp", "tp"): the experts split over "model" where E divides
+      (expert parallelism; each rank runs its experts' FFNs on its slice
+      of the buffer, with the expert weights gathered on the data axes),
+      replicated otherwise.
+    * the combine gathers ``ys`` (an all-gather over "model") and runs
+      replicated; ``out`` is pinned "dp", back to the batch split.
+    """
+    constrain = shard_ctx.constrain
+    b, t, d = x.shape
+    n, k = b * t, cfg.moe_topk
+
+    def reshaped(a, *shape):
+        # DTensor refuses a view that merges or splits a sharded dim, so
+        # the reshapes run on each rank's (replicated) shard
+        loc = Local.of(a)
+        return loc.out(loc.act(a).reshape(*shape))
+
+    xf = constrain(reshaped(replicated(x), 1, n, d), "dp", None, None)
+    rep = Local.of(xf)
+    r = _route(rep.param(p["router"]), cfg, rep.act(xf)[0], placement)
+    xs = constrain(rep.out(r.pop("xs")[None]), "dp", "tp", None, None)
+    ep = Local.of(xs)
+    split = any(getattr(pl, "dim", None) == 1
+                for pl in getattr(xs, "placements", ()))
+    cols = 1 if split else None
+    ys = _experts({name: ep.param(p[name], 0 if split else None)
+                   for name in ("w_gate", "w_up", "w_down")},
+                  ep.act(xs, model_dim=cols)[0])
+    ys = constrain(ep.out(ys[None], model_dim=cols), "dp", "tp", None, None)
+    out = _combine(rep.act(replicated(ys))[0], r, k)
+    out = constrain(rep.out(out[None]), "dp", None, None)
+    out = constrain(reshaped(out, b, t, d), "dp", None, None)
     if return_stats:
-        return out, {"expert_load": count.to(torch.float32),
-                     "dropped": (rank_sorted >= cap).sum()}
+        return out, _stats(r, capacity_for(n, cfg))
     return out
 
 

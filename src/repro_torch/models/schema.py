@@ -222,6 +222,14 @@ def shardings(schema, mesh, rules=None):
     return tree_map(one, schema)
 
 
+def distribute(tree, shardings_tree):
+    """The tensors of ``tree`` (the same on every rank) as DTensors, each
+    laid out by its :class:`Sharding` in ``shardings_tree``."""
+    return tree_unflatten(tree, [
+        s.distribute(t) for t, s in zip(tree_leaves(tree),
+                                        tree_leaves(shardings_tree))])
+
+
 def replication_report(schema, mesh, rules=None) -> dict:
     """Which logical axes failed divisibility and were replicated, with
     their sizes (the JAX package's roofline notes)."""

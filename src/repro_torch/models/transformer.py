@@ -29,6 +29,42 @@ token exactly as the forward did: a last-bit difference in a recomputed
 router logit at a near-tie would otherwise send a token to another expert
 and differentiate another routing than the loss's. In exact arithmetic
 this computes the same function.
+
+On a mesh (ROADMAP A7b; the JAX package's GSPMD partitioner under
+``sharding.ctx.use_mesh``) the parameters are DTensors laid out by
+``sharding.rules.param_shardings`` (TP on "model", FSDP on "data"), and so
+are the batch, the hidden state (pinned ("dp", None, None) by
+``ctx.constrain`` at the JAX package's call sites) and the cache. Each
+layer below has one body, for plain tensors and DTensors alike: it is one
+local call (:class:`~repro_torch.sharding.local.Local`, the identity on
+plain tensors), its norm and its mixer running on each rank's shard, with
+these layouts:
+
+* **attention**: the query heads split over "model" where they divide it
+  (tensor parallelism: ``wq``'s columns, ``wo``'s rows; the output is a
+  partial sum, all-reduced into the residual), the KV heads too where they
+  also divide; otherwise the KV heads are replicated and each rank picks
+  its query heads' KV heads (``attend(kv_heads=...)``), and where the query
+  heads do not divide, the layer runs replicated. The parameter layout
+  splits a flat "q_heads"/"kv_flat" dim wherever its size divides, which
+  may cut a head in two (qwen2's 7 heads of 8 on 2 ranks), so each weight
+  is redistributed to the head-aligned layout first. The flash kernel, a
+  ctypes launch on ``data_ptr()`` that cannot take a DTensor, runs per rank
+  on the local heads and batch shard, as the plain version does on the
+  CPU. A KV cache stays in its layout where that is the local one (heads
+  over "model", batch over "dp"): the step writes the local shard in
+  place. Otherwise (KV heads replicated, or the batch too small to split
+  and the cache split on its sequence) it is gathered and written back.
+* **dense MLP**: the hidden columns split over "model" where they divide.
+* **mamba, sLSTM, mLSTM**: their scans and time loops have no sharding
+  strategy, so each runs replicated on "model" with its weights and state
+  gathered, on the rank's batch shard.
+* **MoE**: :func:`~repro_torch.models.moe.moe` (routing replicated,
+  experts over "model").
+* **embedding and logits**: the table is gathered for the lookup
+  (``F.embedding`` takes no vocabulary-split table); the logits split the
+  vocabulary over "model" ("dp", None, "tp"), and the loss gathers each
+  chunk's vocabulary for its ``logsumexp``.
 """
 
 from __future__ import annotations
@@ -38,9 +74,13 @@ import functools
 from typing import Any, Dict, Optional
 
 import torch
+import torch.nn.functional as F
 from torch.utils.checkpoint import (checkpoint,
                                     create_selective_checkpoint_contexts)
 
+from ..sharding import ctx as shard_ctx
+from ..sharding.local import (Local, layout_batch, mesh_of, model_size,
+                              residual)
 from . import attention as attn_mod
 from . import layers
 from . import mamba as mamba_mod
@@ -161,46 +201,155 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int,
 
 
 # ----------------------------------------------------------------- forward --
+def _norm(scale, x, eps: float):
+    """RMSNorm on each rank's shard, the scale gathered."""
+    loc = Local.of(x)
+    return loc.out(layers.rmsnorm({"scale": loc.param(scale)}, loc.act(x),
+                                  eps))
+
+
+def _operand(h, w):
+    """``h`` cast as :func:`~repro_torch.models.layers.dot` casts it for a
+    product with ``w``, in a replicated call. A tensor-parallel call's
+    gradient for its input is a partial sum per rank; cast there, each
+    partial would be rounded to bfloat16 on its own. Cast here, the
+    partial sums are all-reduced in the product's dtype first (the
+    backward of :meth:`Local.out`), and the cast rounds their sum, as the
+    unsharded layer's cast does."""
+    dt = torch.promote_types(h.dtype, w.dtype)
+    if h.dtype == dt:
+        return h
+    loc = Local.of(h)
+    return loc.out(loc.act(h).to(dt))
+
+
+def _attention(p, scale, cfg: ModelConfig, x, positions, eps: float, *,
+               window: int = 0, causal: bool = True, cache=None,
+               cache_index: int = 0, kv_source=None, use_rope: bool = True,
+               use_flash: bool = False):
+    """The norm (replicated on "model") and the attention of one
+    sub-layer; returns its output for the residual. ``cache`` ({"k",
+    "v"}) is updated in place."""
+    mesh = mesh_of(x)
+    m = model_size(mesh)
+    hq, hkv = cfg.n_heads, cfg.n_kv_heads
+    q_split = m > 1 and hq % m == 0
+    kv_split = q_split and hkv % m == 0
+    loc = Local.of(x, tp=q_split)
+    qd, kvd = (1 if q_split else None), (1 if kv_split else None)
+    lp = {"wq": loc.param(p["wq"], qd), "wk": loc.param(p["wk"], kvd),
+          "wv": loc.param(p["wv"], kvd),
+          "wo": loc.param(p["wo"], 0 if q_split else None)}
+    if "bq" in p:
+        lp["bq"] = loc.param(p["bq"], 0 if q_split else None)
+        lp["bk"] = loc.param(p["bk"], 0 if kv_split else None)
+        lp["bv"] = loc.param(p["bv"], 0 if kv_split else None)
+    hl = hq // m if q_split else hq
+    lcfg = cfg if not q_split else dataclasses.replace(
+        cfg, n_heads=hl, n_kv_heads=hkv // m if kv_split else hkv,
+        head_dim=cfg.hd)
+    h = _norm(scale, x, eps)
+    src = h if kv_source is None else kv_source
+    # each projection casts its own operand, in the order ``attn`` does:
+    # autograd sums their rounded gradients
+    q, k, v = (layers.dot(loc.act(_operand(a, p[w])), lp[w]) for a, w in
+               ((h, "wq"), (src, "wk"), (src, "wv")))
+    kv_heads = None
+    if q_split and not kv_split:
+        first = loc.model_rank * hl
+        kv_heads = torch.arange(first, first + hl,
+                                device=q.device) // (hq // hkv)
+    lcache, writes = None, []
+    if cache is not None:
+        lcache = {}
+        for name in ("k", "v"):
+            lcache[name], write = loc.state(cache[name],
+                                            2 if kv_split else None)
+            writes.append(write)
+    out, _ = attn_mod.attend(
+        lp, lcfg, q, k, v, positions, window=window, causal=causal,
+        cache=lcache, cache_index=cache_index, cross=kv_source is not None,
+        use_rope=use_rope, use_flash=use_flash, kv_heads=kv_heads)
+    for write in writes:
+        write()
+    return loc.out(out)
+
+
+def _mlp(p, scale, cfg: ModelConfig, x, eps: float):
+    """The norm and the gated MLP (``layers.mlp``'s SwiGLU) of one
+    sub-layer, its hidden columns split over "model" where they divide."""
+    m = model_size(mesh_of(x))
+    split = m > 1 and cfg.d_ff % m == 0
+    loc = Local.of(x, tp=split)
+    cols = 1 if split else None
+    lp = {"w_gate": loc.param(p["w_gate"], cols),
+          "w_up": loc.param(p["w_up"], cols),
+          "w_down": loc.param(p["w_down"], 0 if split else None)}
+    h = _norm(scale, x, eps)
+    gate = F.silu(layers.dot(loc.act(_operand(h, p["w_gate"])),
+                             lp["w_gate"]))
+    up = layers.dot(loc.act(_operand(h, p["w_up"])), lp["w_up"])
+    return loc.out(layers.dot(gate * up, lp["w_down"]))
+
+
+_RECURRENT = {"mamba": mamba_mod.mamba, "slstm": xlstm_mod.slstm,
+              "mlstm": xlstm_mod.mlstm}
+
+
+def _recurrent(kind: str, p, scale, cfg: ModelConfig, x, eps: float,
+               cache=None):
+    """The norm and a mamba / sLSTM / mLSTM layer, replicated on "model" on
+    the rank's batch shard; ``cache`` takes the new state in place."""
+    loc = Local.of(x)
+    lp = {name: loc.param(w) for name, w in p.items()}
+    h = layers.rmsnorm({"scale": loc.param(scale)}, loc.act(x), eps)
+    state, writes = None, []
+    if cache is not None:
+        state = {}
+        for name, c in cache.items():
+            state[name], write = loc.state(c)
+            writes.append(write)
+    out, new = _RECURRENT[kind](lp, cfg, h, state=state)
+    if cache is not None:
+        for name, value in new.items():
+            state[name].copy_(value)
+        for write in writes:
+            write()
+    return loc.out(out)
+
+
 def _apply_sub(p, cfg: ModelConfig, j: int, x, positions, cache, cache_index,
                encoder_out, placement, use_flash: bool, collect_moe: bool):
     """One sub-layer; returns (x, the expert loads or None). A recurrent
     sub-layer with a cache writes its new state into the cache in place."""
     kind = cfg.layer_pattern[j]
-    h = layers.rmsnorm(p["norm"], x, cfg.norm_eps)
+    eps = cfg.norm_eps
     if kind == "attn":
-        out, _ = attn_mod.attn(
-            p["attn"], cfg, h, positions, window=cfg.layer_window(j),
-            causal=True, cache=cache, cache_index=cache_index,
-            use_flash=use_flash)
+        out = _attention(p["attn"], p["norm"]["scale"], cfg, x, positions,
+                         eps, window=cfg.layer_window(j), cache=cache,
+                         cache_index=cache_index, use_flash=use_flash)
     else:
-        if kind == "mamba":
-            out, state = mamba_mod.mamba(p["mamba"], cfg, h, state=cache)
-        elif kind == "slstm":
-            out, state = xlstm_mod.slstm(p["cell"], cfg, h, state=cache)
-        else:
-            out, state = xlstm_mod.mlstm(p["cell"], cfg, h, state=cache)
-        if cache is not None:
-            for name, value in state.items():
-                cache[name].copy_(value)
-    x = x + out
+        key = "mamba" if kind == "mamba" else "cell"
+        out = _recurrent(kind, p[key], p["norm"]["scale"], cfg, x, eps,
+                         cache=cache)
+    x = residual(x, out)
     if "cross" in p and encoder_out is not None:
-        h = layers.rmsnorm(p["cross_norm"], x, cfg.norm_eps)
-        out, _ = attn_mod.attn(p["cross"], cfg, h, positions, causal=False,
-                               kv_source=encoder_out, use_rope=False)
-        x = x + out
+        out = _attention(p["cross"], p["cross_norm"]["scale"], cfg, x,
+                         positions, eps, causal=False, kv_source=encoder_out,
+                         use_rope=False)
+        x = residual(x, out)
     moe_load = None
     if "mlp" in p:
-        h = layers.rmsnorm(p["mlp_norm"], x, cfg.norm_eps)
-        x = x + layers.mlp(p["mlp"], h)
+        x = residual(x, _mlp(p["mlp"], p["mlp_norm"]["scale"], cfg, x, eps))
     elif "moe" in p:
-        h = layers.rmsnorm(p["mlp_norm"], x, cfg.norm_eps)
+        h = _norm(p["mlp_norm"]["scale"], x, eps)
         if collect_moe:
             out, stats = moe_mod.moe(p["moe"], cfg, h, placement=placement,
                                      return_stats=True)
             moe_load = stats["expert_load"]
         else:
             out = moe_mod.moe(p["moe"], cfg, h, placement=placement)
-        x = x + out
+        x = residual(x, out)
     return x, moe_load
 
 
@@ -284,25 +433,26 @@ def encode(params, cfg: ModelConfig, frames: torch.Tensor) -> torch.Tensor:
     plain attention layers (no RoPE, never the flash kernel) with dense
     MLPs, then a final norm."""
     ecfg = _encoder_cfg(cfg)
-    _, f, d = frames.shape
-    pos = torch.arange(f, device=frames.device)
+    loc = Local.of(frames)
+    f = loc.act(frames)
+    _, t, d = f.shape
+    pos = torch.arange(t, device=f.device)
     half = d // 2
     freqs = 10_000.0 ** (-torch.arange(half, dtype=torch.float32,
-                                       device=frames.device) / half)
+                                       device=f.device) / half)
     angles = pos[:, None] * freqs
-    x = frames + torch.cat([torch.sin(angles), torch.cos(angles)],
-                           dim=-1).to(frames.dtype)[None]
+    x = loc.out(f + torch.cat([torch.sin(angles), torch.cos(angles)],
+                              dim=-1).to(f.dtype)[None])
+    eps = cfg.norm_eps
     groups = tree_map(lambda a: a.unbind(0) if torch.is_tensor(a) else a,
                       params["encoder"]["groups"]["sub0"])
     for g in range(ecfg.n_layers):
         gp = tree_map(lambda a: a[g], groups)
-        h = layers.rmsnorm(gp["norm"], x, cfg.norm_eps)
-        out, _ = attn_mod.attn(gp["attn"], ecfg, h, pos, causal=False,
-                               use_rope=False, use_flash=False)
-        x = x + out
-        h = layers.rmsnorm(gp["mlp_norm"], x, cfg.norm_eps)
-        x = x + layers.mlp(gp["mlp"], h)
-    return layers.rmsnorm(params["encoder"]["final_norm"], x, cfg.norm_eps)
+        x = residual(x, _attention(gp["attn"], gp["norm"]["scale"], ecfg, x,
+                                   pos, eps, causal=False, use_rope=False))
+        x = residual(x, _mlp(gp["mlp"], gp["mlp_norm"]["scale"], ecfg, x,
+                             eps))
+    return _norm(params["encoder"]["final_norm"]["scale"], x, eps)
 
 
 def forward(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
@@ -315,50 +465,83 @@ def forward(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
     the decode steps) or {"pixel_embeds"} (B, P, D) (a vision prefix,
     prepended). Returns (hidden (B, T [+ P], D), cache), or (hidden, cache,
     loads) with ``collect_moe`` (see :func:`decoder_apply` for
-    ``placements``, ``remat`` and ``loads``)."""
+    ``placements``, ``remat`` and ``loads``).
+
+    With DTensor parameters (see the module docstring) the hidden state
+    and the cache are DTensors too, and a plain batch tensor is laid out
+    by the batch spec on the parameters' mesh."""
+    batch = layout_batch(batch, mesh_of(params["embed"]["tokens"]))
     tokens = batch["tokens"]
-    x = layers.embed(params["embed"], tokens).to(torch.bfloat16)
+    # the table gathered for the lookup, on each rank's batch shard
+    loc = Local.of(tokens)
+    x = loc.out(layers.embed({"tokens": loc.param(params["embed"]["tokens"])},
+                             loc.act(tokens)).to(torch.bfloat16))
+    x = shard_ctx.constrain(x, "dp", None, None)
     encoder_out = batch.get("encoder_out")
     if (encoder_out is None and cfg.frontend == "audio_stub"
             and "frames" in batch):
         encoder_out = encode(params, cfg, batch["frames"])
     elif cfg.frontend == "vision_stub" and "pixel_embeds" in batch:
-        x = torch.cat([batch["pixel_embeds"].to(x.dtype), x], dim=1)
+        loc = Local.of(x)
+        x = loc.out(torch.cat([loc.act(batch["pixel_embeds"]).to(x.dtype),
+                               loc.act(x)], dim=1))
     t = x.shape[1]
     positions = cache_index + torch.arange(t, device=x.device)
     x, new_cache, *loads = decoder_apply(
         params, cfg, x, positions, cache=cache, cache_index=cache_index,
         encoder_out=encoder_out, placements=placements, use_flash=use_flash,
         remat=remat, collect_moe=collect_moe)
-    x = layers.rmsnorm(params["final_norm"], x, cfg.norm_eps)
+    x = _norm(params["final_norm"]["scale"], x, cfg.norm_eps)
     return (x, new_cache, *loads)
 
 
 def logits_from_hidden(params, cfg: ModelConfig, hidden: torch.Tensor
                        ) -> torch.Tensor:
+    """(B, T, V) logits, the vocabulary padding masked; on a mesh the
+    vocabulary split over "model" where it divides, the padding masked on
+    each rank's columns."""
+    m = model_size(mesh_of(hidden))
+    split = m > 1 and cfg.vocab_padded % m == 0
+    loc = Local.of(hidden, tp=split)
+    h = loc.act(hidden)
     if cfg.tie_embeddings:
-        logits = layers.dot(hidden, params["embed"]["tokens"].T)
+        w = loc.param(params["embed"]["tokens"], 0 if split else None)
+        logits = layers.dot(h, w.T)
     else:
-        logits = layers.unembed(params["unembed"], hidden)
+        logits = layers.unembed({"w": loc.param(params["unembed"]["w"],
+                                                1 if split else None)}, h)
     # mask vocab padding
     if cfg.vocab_padded != cfg.vocab:
         mask = torch.zeros(cfg.vocab_padded, dtype=logits.dtype,
                            device=logits.device)
         mask[cfg.vocab:] = -1e30
+        if split:
+            cols = logits.shape[-1]
+            mask = mask[loc.model_rank * cols:(loc.model_rank + 1) * cols]
         logits = logits + mask
-    return logits
+    return loc.out(logits, model_dim=2 if split else None)
 
 
 def _chunk_loss(params, cfg: ModelConfig, hidden: torch.Tensor,
                 labels: torch.Tensor):
     """One sequence chunk's summed cross-entropy and its count of labels
-    (``labels < 0`` are masked out), over float32 logits."""
-    logits = logits_from_hidden(params, cfg, hidden).to(torch.float32)
+    (``labels < 0`` are masked out), over float32 logits. On a mesh the
+    logits are pinned ("dp", None, "tp"), and the vocabulary is gathered
+    for the ``logsumexp`` (which has no vocabulary-split strategy) on each
+    rank's batch shard; both sums come back as plain 0-d tensors, the same
+    on every rank."""
+    hidden = shard_ctx.constrain(hidden, "dp", None, None)
+    logits = shard_ctx.constrain(
+        logits_from_hidden(params, cfg, hidden).to(torch.float32),
+        "dp", None, "tp")
+    loc = Local.of(logits)
+    logits, labels = loc.act(logits), loc.act(labels)
     logz = torch.logsumexp(logits, dim=-1)
     gold = torch.gather(logits, -1,
                         labels.clamp(min=0).long()[..., None])[..., 0]
     valid = (labels >= 0).to(torch.float32)
-    return torch.sum((logz - gold) * valid), torch.sum(valid)
+    return (loc.total(torch.sum((logz - gold) * valid)),
+            loc.total(torch.sum(valid)))
 
 
 def lm_loss(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
@@ -379,9 +562,11 @@ def lm_loss(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
     hidden, _, *loads = forward(params, cfg, batch, placements=placements,
                                 use_flash=use_flash, remat=remat,
                                 collect_moe=collect_moe)
-    labels = batch["labels"]
+    labels = layout_batch({"labels": batch["labels"]},
+                          mesh_of(hidden))["labels"]
     if cfg.frontend == "vision_stub" and "pixel_embeds" in batch:
         hidden = hidden[:, batch["pixel_embeds"].shape[1]:]
+    hidden = shard_ctx.constrain(hidden, "dp", None, None)
     t = hidden.shape[1]
     chunks = min(loss_chunks, t)
     while t % chunks:

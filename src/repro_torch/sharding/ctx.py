@@ -1,26 +1,35 @@
 """Activation-sharding constraint context — the JAX package's
 ``sharding/ctx.py``.
 
-``constrain(x, "dp", None, "tp")`` names a logical axis per dim. With no
-mesh installed it returns ``x``; under :func:`use_mesh` it redistributes
-the DTensor ``x`` to the placements those names resolve to, each mesh axis
-used by one dim at most (a later dim that resolves to a used axis is
-replicated), as the JAX package's ``with_sharding_constraint`` pins do.
+``constrain(x, "dp", None, "tp")`` names a logical axis per dim. It
+redistributes the DTensor ``x`` on its own mesh to the placements those
+names resolve to, each mesh axis used by one dim at most (a later dim that
+resolves to a used axis is replicated), as the JAX package's
+``with_sharding_constraint`` pins do; a plain tensor comes back as it is,
+and under :func:`use_mesh` is refused. So a pin never reads the installed
+mesh for a DTensor, and the recomputes of a backward pass (remat's and the
+loss chunks' ``checkpoint``) lay out their DTensors as their forward did,
+wherever that backward runs.
 
-The port's models do not call it yet: running their forward on DTensors
-under a mesh is a later slice (ROADMAP A7b).
+The models call it at the JAX package's unconditional call sites (the
+embedded and hidden state, each loss chunk and its logits, the MoE
+dispatch buffers, each microbatch); ``models.transformer`` runs the layers
+between those pins on each rank's shards.
 """
 
 from __future__ import annotations
 
 import contextlib
 import math
-import threading
+import types
 from typing import Optional
 
 from ..models.schema import mesh_axes, placements_for
 
-_state = threading.local()
+#: the installed mesh, for the whole process (the JAX package keeps it per
+#: thread; here the autograd engine runs a CUDA backward on its own device
+#: threads)
+_state = types.SimpleNamespace(mesh=None)
 
 LOGICAL = {
     "dp": ("pod", "data"),        # batch-like dims
@@ -30,7 +39,7 @@ LOGICAL = {
 
 
 def current_mesh():
-    return getattr(_state, "mesh", None)
+    return _state.mesh
 
 
 @contextlib.contextmanager
@@ -78,14 +87,15 @@ def resolve_spec(mesh, shape, parts) -> tuple:
 
 def constrain(x, *parts):
     """parts: a logical name ('dp' | 'tp' | 'sp' | a mesh axis | None) per
-    dim. ``x`` itself without a mesh; under one, the DTensor ``x``
-    redistributed to the resolved layout."""
-    mesh = current_mesh()
-    if mesh is None:
+    dim. The DTensor ``x`` redistributed on its mesh to the resolved
+    layout; a plain ``x`` itself, outside :func:`use_mesh`."""
+    from .local import is_dtensor
+    if not is_dtensor(x):
+        if current_mesh() is not None:
+            raise TypeError("constrain under a mesh takes a DTensor: lay "
+                            "the parameters and the batch out on the mesh "
+                            "first")
         return x
+    mesh = x.device_mesh
     spec = resolve_spec(mesh, x.shape, parts)
-    from torch.distributed.tensor import DTensor
-    if not isinstance(x, DTensor):
-        raise TypeError("constrain under a mesh takes a DTensor (the model "
-                        "forward on DTensors is not ported yet)")
     return x.redistribute(mesh, list(placements_for(spec, mesh)))

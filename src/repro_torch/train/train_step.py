@@ -15,6 +15,18 @@ gradient of a stacked leaf (2 GB in bfloat16 for each of granite-moe's
 expert weights) never exists beside its slices. One microbatch stacks
 the slices, as its update takes the gradients in the parameters' dtype.
 
+On a mesh (``sharding.ctx.use_mesh``) both steps take DTensor
+parameters laid out by ``sharding.rules.param_shardings``, caches by
+``cache_shardings`` and optimizer state by ``opt_shardings``; a batch
+tensor that is not a DTensor is laid out by the batch spec on the
+parameters' mesh. Each
+microbatch is a slice of the whole batch, pinned "dp" (the JAX package's
+``constrain`` on each microbatch), so an MoE layer's capacity sees the
+same tokens as without a mesh. The gradients, accumulators, moments and
+masters keep the parameters' placements, and :func:`opt_update` runs on
+the local shards; the step returns everything in the placements it was
+given.
+
 Not ported, by decision: the env-gated ``REPRO_PERF_BF16_ACCUM`` and
 ``REPRO_PERF_DEFER_GRAD_SYNC`` paths, which steer XLA's gradient sync over
 a TPU mesh's data axes, and the ``unroll`` argument of the scans.
@@ -29,6 +41,8 @@ import torch
 from ..models import forward, lm_loss, logits_from_hidden
 from ..models.config import ModelConfig
 from ..models.schema import tree_leaves, tree_map, tree_unflatten
+from ..sharding import ctx as shard_ctx
+from ..sharding.local import layout_batch, mesh_of
 from .optimizer import OptConfig, opt_update
 
 
@@ -87,6 +101,7 @@ def make_train_step(cfg: ModelConfig, opt_cfg: OptConfig,
         return loss.detach(), loads, grads
 
     def train_step(params, opt_state, batch, placements=None):
+        batch = layout_batch(batch, mesh_of(params["embed"]["tokens"]))
         if microbatches == 1:
             loss, loads, grads = grads_of(params, batch, placements)
             grads = [torch.stack(g) if isinstance(g, tuple) else g
@@ -97,11 +112,15 @@ def make_train_step(cfg: ModelConfig, opt_cfg: OptConfig,
                 raise ValueError(f"batch {b} does not split into "
                                  f"{microbatches} microbatches")
             size = b // microbatches
-            grads = [torch.zeros(p.shape, dtype=accum_dtype, device=p.device)
+            grads = [torch.zeros_like(p, dtype=accum_dtype)
                      for p in tree_leaves(params)]
             loss, loads = None, None
+            whole = {k: shard_ctx.constrain(v, *([None] * v.dim()))
+                     for k, v in batch.items()}
             for i in range(microbatches):
-                mb = {k: v[i * size:(i + 1) * size] for k, v in batch.items()}
+                mb = {k: shard_ctx.constrain(v[i * size:(i + 1) * size], "dp",
+                                             *([None] * (v.dim() - 1)))
+                      for k, v in whole.items()}
                 mb_loss, mb_loads, mb_grads = grads_of(params, mb, placements)
                 for acc, g in zip(grads, mb_grads):
                     for a, part in (zip(acc, g) if isinstance(g, tuple)
@@ -133,14 +152,20 @@ def make_serve_step(cfg: ModelConfig, use_flash: bool = False):
     :func:`forward` takes it (``frames``, ``encoder_out``,
     ``pixel_embeds``). ``placements`` (n_layers, E) places an MoE model's
     experts (``models.skewshield.placements_array``). The cache is updated
-    in place and returned."""
+    in place and returned. On a mesh the logits are a DTensor pinned
+    ("dp", None, "tp")."""
 
-    @torch.inference_mode()
     def serve_step(params, cache, batch, index, placements=None):
-        hidden, new_cache = forward(params, cfg, batch, cache=cache,
-                                    cache_index=index, placements=placements,
-                                    use_flash=use_flash, remat=False)
-        logits = logits_from_hidden(params, cfg, hidden[:, -1:, :])
+        # DTensor's view ops set version counters, which inference-mode
+        # tensors do not have: on a mesh the step runs under no_grad
+        mode = (torch.inference_mode()
+                if mesh_of(params["embed"]["tokens"]) is None
+                else torch.no_grad())
+        with mode:
+            hidden, new_cache = forward(
+                params, cfg, batch, cache=cache, cache_index=index,
+                placements=placements, use_flash=use_flash, remat=False)
+            logits = logits_from_hidden(params, cfg, hidden[:, -1:, :])
         return logits, new_cache
 
     return serve_step

@@ -1,6 +1,12 @@
 """Training loop: checkpoint/restart, the straggler watchdog and SkewShield
 MoE placement updates — the JAX package's ``train/trainer.py``, on one
-device.
+device or, with ``mesh``, on DTensors over a device mesh (each rank runs
+the same trainer; the parameters are laid out by ``param_shardings``, the
+optimizer state as they are, and every step runs under
+``sharding.ctx.use_mesh``). Under a mesh a checkpoint holds the full
+tensors, gathered on every rank and written by rank 0, and a restore lays
+them out again; a SkewShield move permutes the gathered expert weights and
+writes each rank's shards back.
 
 Two differences from the JAX package, each a fault of the reference that
 the port does not copy:
@@ -34,9 +40,12 @@ from ..models import model_schema, schema
 from ..models.config import ModelConfig
 from ..models.skewshield import (SkewShieldPlacer, permute_expert_params,
                                  placements_array)
+from ..sharding import ctx as shard_ctx
+from ..sharding import rules
+from ..sharding.local import is_dtensor
 from ..streams.device import resolve_device
 from .checkpoint import CheckpointManager
-from .optimizer import OptConfig, opt_init
+from .optimizer import OptConfig, opt_init, opt_shardings
 from .train_step import make_train_step
 
 _EXPERT_WEIGHTS = ("w_gate", "w_up", "w_down")
@@ -65,15 +74,19 @@ class Trainer:
     def __init__(self, cfg: ModelConfig, opt_cfg: OptConfig,
                  tcfg: TrainerConfig, checkpoint_dir: str,
                  data_fn: Callable[[int], Dict[str, Any]],
-                 seed: int = 0, device=None):
+                 seed: int = 0, device=None, mesh=None):
         self.cfg = cfg
         self.tcfg = tcfg
         self.data_fn = data_fn
         self.device = resolve_device(device)
+        self.mesh = mesh
         self.schema = model_schema(cfg)
         self.params = schema.init(
             self.schema, torch.Generator(device=self.device).manual_seed(seed),
             self.device)
+        if mesh is not None:
+            self.shardings = rules.param_shardings(self.schema, mesh)
+            self.params = schema.distribute(self.params, self.shardings)
         self.opt_state = opt_init(self.params)
         self.ckpt = CheckpointManager(checkpoint_dir)
         self.step_fn = make_train_step(
@@ -122,6 +135,10 @@ class Trainer:
         except (FileNotFoundError, ValueError):
             return False
         self.params, self.opt_state = state["params"], state["opt"]
+        if self.mesh is not None:
+            self.params = schema.distribute(self.params, self.shardings)
+            self.opt_state = schema.distribute(
+                self.opt_state, opt_shardings(self.shardings, self.mesh))
         if self.placers:
             sk = state["skewshield"]
             for placer, placement, table in zip(
@@ -155,8 +172,9 @@ class Trainer:
         while self.step < end:
             batch = self._batch(self.step)
             t0 = time.perf_counter()
-            self.params, self.opt_state, metrics = self.step_fn(
-                self.params, self.opt_state, batch, self.placements())
+            with shard_ctx.use_mesh(self.mesh):
+                self.params, self.opt_state, metrics = self.step_fn(
+                    self.params, self.opt_state, batch, self.placements())
             loss = float(metrics["loss"])
             dt = time.perf_counter() - t0
             self.step += 1
@@ -174,7 +192,14 @@ class Trainer:
         return self.history
 
     def save(self):
-        self.ckpt.save(self.step, self._state(), meta={"arch": self.cfg.name})
+        state = self._state()
+        if self.mesh is not None:
+            import torch.distributed as dist
+            state = schema.tree_map(
+                lambda t: t.full_tensor() if is_dtensor(t) else t, state)
+            if dist.get_rank() != 0:
+                return
+        self.ckpt.save(self.step, state, meta={"arch": self.cfg.name})
 
     # -------------------------------------------------- fleet health hooks
     def _watchdog(self, dt: float) -> None:
@@ -207,8 +232,23 @@ class Trainer:
                         self.opt_state[k]["groups"][f"sub{j}"]["moe"]
                         for k in ("m", "v", "master")]
                     for tree in trees:
+                        here = {name: tree[name][g]
+                                for name in _EXPERT_WEIGHTS}
                         moved = permute_expert_params(
-                            {name: tree[name][g] for name in _EXPERT_WEIGHTS},
+                            {name: _full(w) for name, w in here.items()},
                             old, upd.placement)
-                        for name in _EXPERT_WEIGHTS:
-                            tree[name][g].copy_(moved[name])
+                        for name, w in here.items():
+                            w.copy_(_like(moved[name], w))
+
+
+def _full(t: torch.Tensor) -> torch.Tensor:
+    return t.full_tensor() if is_dtensor(t) else t
+
+
+def _like(full: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+    """``full`` laid out as the DTensor ``t`` (``full`` itself for a
+    tensor)."""
+    if not is_dtensor(t):
+        return full
+    from torch.distributed.tensor import distribute_tensor
+    return distribute_tensor(full, t.device_mesh, t.placements)

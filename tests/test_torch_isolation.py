@@ -1,11 +1,14 @@
-"""The port stands alone: no module of ``src/repro_torch/`` and not
-``chip_smoke.py`` imports JAX or the JAX package, the package imports and
+"""The port stands alone: no module of ``src/repro_torch/``, not
+``chip_smoke.py`` and not the spawned ranks' code (``tests/torch_*_worker.py``)
+imports JAX or the JAX package, the package imports and
 runs with both blocked (the stream stage, a ``ChaosRunner`` interval with
 a kill and an ``AutoscaleLoop`` step on the device ring, a smoke serve
 step, an MoE smoke serve path, the serving engine, a keyed data pipeline
 interval, an MoE train step and one smoke forward of each of jamba,
-xlstm, whisper and internvl2, and a one-rank gloo sharded stage
-interval), and its entry
+xlstm, whisper and internvl2, a smoke dry run and its roofline, and on a
+one-rank gloo group a sharded stage interval and the mesh worker's serve
+and train cases on a (1, 1) mesh, with a backward on another thread),
+and its entry
 points refuse to run without a CUDA device unless the caller asks for the
 CPU."""
 
@@ -19,7 +22,8 @@ import pytest
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + \
-    [ROOT / "chip_smoke.py"]
+    [ROOT / "chip_smoke.py", ROOT / "tests" / "torch_mesh_worker.py",
+     ROOT / "tests" / "torch_sharded_worker.py"]
 FORBIDDEN = ("jax", "jaxlib", "repro")
 
 
@@ -169,8 +173,49 @@ with tempfile.TemporaryDirectory() as d:
         r = s.process_interval_arrays(np.arange(200, dtype=np.int64) % 37)
         assert r.tuples == 200 and s.total_state_keys() == 37
         assert s.backend.fleet.n_shards == 1
+        sys.path.insert(0, "tests")
+        import torch_mesh_worker
+        from repro_torch.launch.mesh import make_mesh
+        mesh = make_mesh((1, 1), ("data", "model"), device_type="cpu")
+        row = torch_mesh_worker.serve_case("granite_moe_3b_a800m", mesh, 1)
+        want, got = row["free"]
+        assert np.abs(got - want).max() <= 1e-6 * np.abs(want).max()
+        assert row["routing_equal"] and row["routes"] > 0
+        row = torch_mesh_worker.train_case("granite_8b", mesh, 2)
+        assert row["placements"][0] == row["placements"][1]
+        np.testing.assert_allclose(row["loss"][1], row["loss"][0], rtol=1e-5)
+        # a CUDA backward runs on the autograd engine's device threads: the
+        # recomputes there (remat, the loss chunks) must see the mesh
+        import threading
+        from repro_torch.models import lm_loss
+        from repro_torch.sharding import ctx, rules
+        gcfg = smoke_config("granite_8b")
+        sch = model_schema(gcfg)
+        live = schema_mod.distribute(
+            schema_mod.init(sch, torch.Generator().manual_seed(3), "cpu"),
+            rules.param_shardings(sch, mesh))
+        live = schema_mod.tree_map(lambda t: t.detach().requires_grad_(),
+                                   live)
+        toks = torch.randint(0, gcfg.vocab, (2, 9),
+                             generator=torch.Generator().manual_seed(4))
+        done = []
+        with ctx.use_mesh(mesh):
+            loss = lm_loss(live, gcfg, {"tokens": toks[:, :-1],
+                                        "labels": toks[:, 1:]})
+            worker = threading.Thread(target=lambda: done.append(
+                torch.autograd.grad(loss, schema_mod.tree_leaves(live))))
+            worker.start()
+            worker.join(timeout=120)
+        assert done and len(done[0]) == len(schema_mod.tree_leaves(live))
     finally:
         dist.destroy_process_group()
+from repro_torch.launch import dryrun, roofline, specs
+from repro_torch.models.config import ShapeConfig
+rep = dryrun.lower_cell("granite_moe_3b_a800m",
+                        ShapeConfig("t", 8, 2, "train"),
+                        cfg=smoke_config("granite_moe_3b_a800m"))
+assert rep["flops"] > 0 and rep["bytes_per_device"]["total"] > 0
+assert len(dryrun.cell_list()) > 0
 assert not any(m == "jax" or m.startswith(("jax.", "repro."))
                for m in sys.modules if sys.modules[m] is not None)
 print("ok")

@@ -8,7 +8,9 @@ a 4-rank gloo mesh.
   ``shape`` and ``axis_names``, so a namespace stands in for the mesh;
   qwen2's 28 heads on 16-way axes fall back to replication in both.
 * ``ctx._resolve`` against JAX's, the used-axes dedup of ``constrain``,
-  and the thread-local mesh context.
+  and the mesh context; ``sharding.local``'s layouts are the identity on
+  plain tensors, which is what keeps the model's one body per layer op
+  for op the unsharded code without a mesh.
 * One spawned 4-rank gloo group (``tests/torch_sharded_worker.py``): a
   smoke model's parameters distributed by ``param_shardings`` on a (2, 2)
   mesh hold the local shapes their specs give and round-trip through
@@ -136,6 +138,28 @@ def test_mesh_context_nests_and_constrain_is_a_noop_without_one():
     for multi_pod, ranks in ((False, 256), (True, 512)):
         with pytest.raises(ValueError, match=f"needs {ranks} ranks"):
             make_production_mesh(multi_pod=multi_pod)
+
+
+@pytest.mark.parametrize("tp", [False, True])
+def test_local_layouts_are_the_identity_on_plain_tensors(tp):
+    import torch
+
+    from repro_torch.sharding.local import (Local, layout_batch, mesh_of,
+                                            replicated, residual)
+    x = torch.arange(6.0).reshape(2, 3)
+    loc = Local.of(x, tp=tp)
+    assert loc.mesh is None and loc.model_rank == 0 and mesh_of(x) is None
+    assert loc.act(x) is x and loc.act(x, model_dim=1) is x
+    assert loc.param(x) is x and loc.param(x, 1) is x
+    assert loc.out(x) is x and loc.out(x, model_dim=1) is x
+    assert loc.wrap(x, None) is x and loc.total(x) is x
+    state, write = loc.state(x, 1)
+    assert state is x and write() is None
+    assert replicated(x) is x
+    assert torch.equal(residual(x, x), 2 * x)
+    batch = {"tokens": x}
+    assert layout_batch(batch, None) is batch
+    assert ctx.constrain(x, "dp", "tp") is x
 
 
 def test_params_laid_out_on_a_4_rank_mesh(tmp_path):

@@ -46,6 +46,7 @@ from repro.models import lm_loss as jax_lm_loss
 from repro.models import transformer as jtransformer
 from repro_torch.configs import smoke_config
 from repro_torch.convert import load_reference_params
+from repro_torch.models import layers as tlayers
 from repro_torch.models import lm_loss, model_schema
 from repro_torch.models.schema import (tree_leaves, tree_map, tree_paths,
                                        tree_unflatten)
@@ -233,6 +234,32 @@ def test_lm_loss_head_matches_jax_lm_loss(chunks):
                                 materialize_grads=True)
     np.testing.assert_allclose(float(got.detach()), float(want), **LOSS_TOL)
     _assert_grads_close(tree_unflatten(live, grads), wgrads)
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_embed_grads_match_jax_f32(arch):
+    """The embedding alone, float32, no bfloat16 cast between it and the
+    loss: the table's gradient (repeated tokens summed) within 1e-6 + 1e-4
+    x its largest element of ``jax.grad`` of the JAX package's
+    ``layers.embed``. The model-level checks hold this leaf at one
+    bfloat16 ulp (it sits behind the forward's cast), which is where the
+    train step's second moment of it came to 0.66 of its tolerance."""
+    cfg, _, p, _ = _model(arch, 3)
+    table = p["embed"]["tokens"]
+    rng = np.random.default_rng(4)
+    tokens = rng.integers(0, cfg.vocab, (4, 24)).astype(np.int32)
+    tokens[:, :4] = 7                                 # a repeated token
+    cot = rng.standard_normal(tokens.shape + (cfg.d_model,)).astype(
+        np.float32)
+    want = jax.grad(lambda t: jnp.sum(
+        jlayers.embed({"tokens": t}, jnp.asarray(tokens)) * cot))(
+            jnp.asarray(table))
+    live = torch.from_numpy(table).requires_grad_()
+    out = tlayers.embed({"tokens": live}, torch.from_numpy(tokens).long())
+    got, = torch.autograd.grad(torch.sum(out * torch.from_numpy(cot)), live)
+    want = np.asarray(want)
+    np.testing.assert_allclose(got.numpy(), want, rtol=0,
+                               atol=1e-6 + 1e-4 * float(np.abs(want).max()))
 
 
 def test_lm_loss_with_every_label_masked_is_zero():

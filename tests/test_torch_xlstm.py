@@ -15,15 +15,18 @@ packages (``tests/torch_model_ref.py``). Tolerances:
   bfloat16, where a float32 difference of one ulp can round to another
   value);
 * ``lm_loss`` in float32: rtol 1e-5, gradients 1e-6 + 1e-4 x each leaf's
-  largest element (2^-7 x behind a bfloat16 cast), as
+  largest element (2^-7 x behind a bfloat16 cast: ``CAST_LEAVES``), as
   ``tests/test_torch_train.py`` holds them; in bfloat16 against the JAX
-  package's own ``lm_loss``: rtol 5e-3.
+  package's own ``lm_loss``: rtol 5e-3;
+* one cell alone in float32, no cast in the way: every parameter's and
+  the input's gradient within 1e-6 + 1e-4 x each leaf's largest element.
 
 The JAX package's quirks are kept: a cache starts the sLSTM's stabilizer
 at 0 (its ``cache_schema``'s zeros), a cache-free call at -1e30; the
 mLSTM's gates are shared across heads.
 """
 
+import jax
 import jax.numpy as jnp
 import ml_dtypes
 import numpy as np
@@ -39,7 +42,17 @@ from repro_torch.models import xlstm as txlstm
 import torch_model_ref as ref
 
 ARCH = "xlstm_125m"
-CAST_LEAVES = ("['embed']['tokens']", "['groups']['sub0']['norm']['scale']")
+# the leaves whose cotangents pass a bfloat16 cast: the embedding and the
+# first norm, and group 0's mLSTM projections, which reach the loss through
+# the cast of the cell's output to its input's dtype (``xlstm.py``'s
+# ``.to(x.dtype)``), bfloat16 in sub-layer 0 (it takes the bf16 embedding);
+# the cell alone is held at 1e-4 by the ``*_grads_match_jax_f32`` tests
+CAST_LEAVES = ("['embed']['tokens']", "['groups']['sub0']['norm']['scale']",
+               "['groups']['sub0']['cell']['wq']",
+               "['groups']['sub0']['cell']['wk']",
+               "['groups']['sub0']['cell']['wv']",
+               "['groups']['sub0']['cell']['w_if']",
+               "['groups']['sub0']['cell']['b_if']")
 
 
 def _layer(kind, seed, bf16=False):
@@ -135,6 +148,60 @@ def test_cells_bf16_match_jax_within_an_ulp(kind):
                                    ref.to_torch({"x": x})["x"])
     assert got.dtype == torch.bfloat16
     _close(got, want, 2.0 ** -7)
+
+
+def _cell_grads(kind, cfg, jcfg, p, x, **kw):
+    """(port gradients, JAX gradients) of the sum of a cell's output times
+    a fixed random cotangent, for every parameter and the input: float32
+    throughout, so no bfloat16 cast lies on the path."""
+    import jax
+    cot = np.random.default_rng(11).standard_normal(x.shape).astype(
+        np.float32)
+    jfn = getattr(jxlstm, kind)
+
+    def jloss(jp, jx):
+        out, _ = jfn(jp, jcfg, jx, **kw)
+        return jnp.sum(out * cot)
+
+    wp, wx = jax.grad(jloss, argnums=(0, 1))(ref.to_jax(p), jnp.asarray(x))
+    tp = {k: v.requires_grad_() for k, v in
+          load_reference_params(p, "cpu").items()}
+    tx = torch.from_numpy(x).requires_grad_()
+    out, _ = getattr(txlstm, kind)(tp, cfg, tx, **kw)
+    names = sorted(tp)
+    got = torch.autograd.grad(torch.sum(out * torch.from_numpy(cot)),
+                              [tp[k] for k in names] + [tx])
+    return (dict(zip(names + ["x"], got)),
+            {**{k: wp[k] for k in names}, "x": wx})
+
+
+def _grads_close(got, want):
+    for name, w in want.items():
+        w = np.asarray(w, np.float32)
+        np.testing.assert_allclose(
+            got[name].numpy(), w, rtol=0,
+            atol=1e-6 + 1e-4 * float(np.abs(w).max(initial=0)),
+            err_msg=name)
+
+
+@pytest.mark.parametrize("chunk", [8, 128])
+def test_mlstm_grads_match_jax_f32(chunk):
+    """One mLSTM cell alone, float32 input (no bfloat16 cast between it and
+    the loss): gradients of every parameter (nonzero ``b_if``) and of the
+    input within 1e-6 + 1e-4 x each leaf's largest element of
+    ``jax.grad``, at chunks of 8 and 128 over 40 tokens."""
+    cfg, jcfg, p = _layer("mlstm", 2)
+    got, want = _cell_grads("mlstm", cfg, jcfg, p, _x(cfg, 3, 40),
+                            chunk=chunk)
+    _grads_close(got, want)
+
+
+def test_slstm_grads_match_jax_f32():
+    """One sLSTM cell alone, float32 input, nonzero biases: as the mLSTM's
+    test, over 20 tokens from ``state=None``."""
+    cfg, jcfg, p = _layer("slstm", 0)
+    got, want = _cell_grads("slstm", cfg, jcfg, p, _x(cfg, 1, 20))
+    _grads_close(got, want)
 
 
 def test_xlstm_forward_bf16_matches_jax():
