@@ -77,7 +77,14 @@ It prints one JSON line per phase, each with its wall seconds:
   greedy tokens, each step timed, then ``serve_local``, which does the
   same: neither may launch the flash kernel, and ``serve_local``'s first
   token must equal (1)'s argmax wherever (1)'s top-1 margin exceeds twice
-  the gap measured in (2).
+  the gap measured in (2). (4) The window-slice leg on the same weights
+  (``window_loss_leg``): the first superblock (5 sliding-window layers and
+  a global one) at full width in float32, ``lm_loss`` forward over 1 x
+  4096 tokens through the plain attention, with no flag, with
+  ``REPRO_PERF_WINDOW_SLICE`` and with it and ``REPRO_PERF_BF16_LOSS``:
+  the sliced loss within ``WINDOW_LEG_RTOL`` of the plain one (1e-4),
+  the bfloat16-logits loss within 5e-3 (ROADMAP C11); each run's ms and
+  peak bytes.
 * ``serve_moe`` — the MoE serving slice: granite-moe-3b-a800m at full
   width and depth (32 layers, d_model 1536, 24/8 heads of 64, 40 experts
   top-8 of d_ff 512, vocab 49155), random bf16 weights, the same 4 x 2048
@@ -166,6 +173,14 @@ It prints one JSON line per phase, each with its wall seconds:
   same step without the mesh within ``CARD_CPU_TOL``, at the ``train``
   phase's 8 x 512 tokens, with the same routing (a routed entry that moved
   fails the phase), returning every leaf in the placements it was given.
+  (2b) The serve launcher's flags (``REPRO_PERF_DECODE_WS``,
+  ``REPRO_PERF_MOE_GROUPED``) on the mesh: the cache-free flash step (once
+  per layer), the cached prefill and the 16 greedy tokens must be bit for
+  bit the flag-free mesh steps' (one rank: one dispatch group, and no
+  "data" split for the decode pin). (3b) The train step with the train
+  launcher's flags and ``REPRO_PERF_DEFER_GRAD_SYNC``: bit for bit the
+  flag-free mesh step; with ``REPRO_PERF_BF16_ACCUM`` too: finite, the same
+  loss, the masters' gap reported, not gated.
   Read: the phase's wall time, each mesh step's time over the unsharded
   step's (what DTensor dispatch costs), peak memory; row
   ``flash_attention[global,mesh]``, timed on the q, k, v of the mesh
@@ -181,9 +196,11 @@ without ``src/repro_torch``.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import hashlib
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -247,6 +264,11 @@ class ServeConfig:
     #: the JAX package's serve-path tolerance (tests/test_arch_smoke.py)
     atol: float = 0.3
     rtol: float = 0.05
+    #: the window-slice leg (``window_loss_leg``): its superblocks of the
+    #: model and its tokens (1 x 4096: at 2048 the band is not taken,
+    #: window 1024 + chunk 1024 = S)
+    window_groups: int = 1
+    window_seq: int = 4096
 
 
 @dataclasses.dataclass(frozen=True)
@@ -1872,6 +1894,24 @@ def timed(sync, fn):
     return res, time.perf_counter() - t0
 
 
+@contextlib.contextmanager
+def perf_flags(names):
+    """Exactly the ``REPRO_PERF_*`` flags ``names`` set in this process's
+    environment within the block (``repro_torch.flags``), the environment
+    as it was after it."""
+    saved = {k: v for k, v in os.environ.items()
+             if k.startswith("REPRO_PERF_")}
+    for k in saved:
+        del os.environ[k]
+    os.environ.update({f"REPRO_PERF_{n}": "1" for n in names})
+    try:
+        yield
+    finally:
+        for k in [k for k in os.environ if k.startswith("REPRO_PERF_")]:
+            del os.environ[k]
+        os.environ.update(saved)
+
+
 def cache_free_steps(torch, cfg, params, batch, spy: FlashSpy, sync,
                      *extra) -> tuple:
     """(1) The cache-free step through the flash kernel, then (2) through
@@ -1996,7 +2036,12 @@ def phase_serve(torch, cfg, scfg: ServeConfig, device, sync) -> dict:
         _, prefill_s, decode_ms, _ = cached_greedy(
             torch, make_serve_step(cfg), params, cache, batch, scfg.tokens,
             sync)
-        del params, cache
+        del cache
+        phase_peak = (torch.cuda.max_memory_allocated()
+                      if dev.type == "cuda" else None)
+        out["window_slice_loss"] = window_loss_leg(torch, cfg, params, scfg,
+                                                   dev, sync)
+        del params
         if dev.type == "cuda":
             torch.cuda.empty_cache()
         (first, greedy), secs = timed(sync, lambda: serve_local(
@@ -2032,7 +2077,99 @@ def phase_serve(torch, cfg, scfg: ServeConfig, device, sync) -> dict:
         "top1_margins": margin.tolist(), "greedy_tokens": greedy.tolist()}
     out["launches"] = launches
     if dev.type == "cuda":
-        out["device_memory_peak_bytes"] = torch.cuda.max_memory_allocated()
+        out["device_memory_peak_bytes"] = max(
+            phase_peak, torch.cuda.max_memory_allocated(),
+            *(r["peak_bytes"] for r in out["window_slice_loss"][
+                "runs"].values()))
+    return out
+
+
+#: the window-slice leg's flags, run by run
+WINDOW_LEG_RUNS = (("plain", ()), ("window_slice", ("WINDOW_SLICE",)),
+                   ("window_slice_bf16_loss", ("WINDOW_SLICE", "BF16_LOSS")))
+#: its gates: the sliced loss against the plain one (float32 sums in
+#: another order, through the leg's layers), and the bfloat16-logits loss
+#: within the parity tests' bfloat16 ``lm_loss`` tolerance (ROADMAP C11)
+WINDOW_LEG_RTOL = {"window_slice": 1e-4, "window_slice_bf16_loss": 5e-3}
+
+
+def window_loss_leg(torch, cfg, params, scfg: ServeConfig, dev,
+                    sync) -> dict:
+    """``REPRO_PERF_WINDOW_SLICE`` and ``REPRO_PERF_BF16_LOSS`` on the model
+    ``cfg``'s weights ``params`` (the serve phase's, not drawn again): its
+    first ``scfg.window_groups`` superblocks at full width in float32
+    (gemma3: 5 sliding-window layers and 1 global a superblock), ``lm_loss``
+    forward only over 1 x ``scfg.window_seq`` tokens through the plain
+    attention, once per ``WINDOW_LEG_RUNS`` flag set. float32, so that the
+    sliced and unsliced bands differ only by float32 sums in another order
+    and the bfloat16 cast of the logits is the flag's own. Each run's loss,
+    ms (the second of two identical calls) and peak device bytes; the gates
+    are ``WINDOW_LEG_RTOL``."""
+    from repro_torch.models import attention, forward, lm_loss
+    from repro_torch.models import logits_from_hidden
+    from repro_torch.models.schema import tree_map
+    g = scfg.window_groups
+    lcfg = dataclasses.replace(cfg, n_layers=cfg.pattern_period * g)
+    p = {k: tree_map(lambda a: a.float(), v) for k, v in params.items()
+         if k != "groups"}
+    p["groups"] = tree_map(lambda a: a[:g].float(), params["groups"])
+    gen = torch.Generator(device=dev).manual_seed(scfg.seed + 5)
+    toks = torch.randint(0, cfg.vocab, (1, scfg.window_seq + 1),
+                         generator=gen, device=dev)
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    runs = {}
+    block = attention._attention_block
+    try:
+        with torch.no_grad():
+            for name, names in WINDOW_LEG_RUNS:
+                with perf_flags(names):
+                    lm_loss(p, lcfg, batch)
+                    if dev.type == "cuda":
+                        torch.cuda.reset_peak_memory_stats()
+                    keys: dict = {}
+                    # the key length of every attention block the timed
+                    # call computes: the band where the slice is taken
+                    attention._attention_block = lambda q, k, *a, **kw: (
+                        keys.__setitem__(k.shape[2],
+                                         keys.get(k.shape[2], 0) + 1),
+                        block(q, k, *a, **kw))[1]
+                    loss, secs = timed(sync,
+                                       lambda: lm_loss(p, lcfg, batch))
+                    attention._attention_block = block
+                runs[name] = {
+                    "flags": list(names), "loss": float(loss),
+                    "ms": secs * 1e3, "key_lengths": {
+                        str(n): c for n, c in sorted(keys.items())},
+                    "peak_bytes": (torch.cuda.max_memory_allocated()
+                                   if dev.type == "cuda" else None)}
+            # the bfloat16 logits against the float32 ones on one chunk
+            hidden = forward(p, lcfg, batch)[0][:, :scfg.window_seq // 8]
+            wide = logits_from_hidden(p, lcfg, hidden)
+            with perf_flags(("BF16_LOSS",)):
+                narrow = logits_from_hidden(p, lcfg, hidden)
+            logit_gap = float((narrow.float() - wide).abs().max())
+            del hidden, wide, narrow
+    finally:
+        attention._attention_block = block
+    plain = runs["plain"]["loss"]
+    n_window = sum(lcfg.layer_window(i) > 0 for i in range(lcfg.n_layers))
+    chunk = min(max(128, attention._CHUNK_ELEMS // scfg.window_seq),
+                scfg.window_seq)
+    band = str(cfg.layer_window(0) + chunk)
+    out = {"n_layers": lcfg.n_layers, "windows": [
+        lcfg.layer_window(i) for i in range(lcfg.n_layers)],
+           "tokens": scfg.window_seq, "dtype": "float32", "runs": runs,
+           "rtol": WINDOW_LEG_RTOL, "band": int(band),
+           "bf16_logits_max_abs_gap": logit_gap,
+           "rel_gap": {k: abs(runs[k]["loss"] - plain) / abs(plain)
+                       for k in WINDOW_LEG_RTOL}}
+    bad = {k: v for k, v in out["rel_gap"].items()
+           if not (v <= WINDOW_LEG_RTOL[k] and np.isfinite(runs[k]["loss"]))}
+    bands = [runs[k]["key_lengths"].get(band, 0) for k in runs]
+    if bad or not np.isfinite(plain) or logit_gap == 0 or \
+            bands != [0] + [n_window * scfg.window_seq // chunk] * 2:
+        raise AssertionError(f"the window-slice leg's losses are off the "
+                             f"plain loss, or a flag did not act: {out}")
     return out
 
 
@@ -3175,6 +3312,7 @@ def phase_mesh(torch, cfg, mcfg: MeshPhaseConfig, device, sync) -> dict:
     the CPU rehearses it), each against the same step without the mesh in
     this call (see the module docstring). ``launches`` holds the flash
     counter's rise in the mesh's cache-free step; ``main`` checks it."""
+    from repro_torch import flags
     from repro_torch.kernels import flash_attention
     from repro_torch.launch.mesh import make_mesh
     from repro_torch.launch.serve import init_request
@@ -3279,6 +3417,37 @@ def phase_mesh(torch, cfg, mcfg: MeshPhaseConfig, device, sync) -> dict:
             raise AssertionError(f"the mesh's greedy tokens differ from the "
                                  f"unsharded run's: {gm.tolist()} against "
                                  f"{gp.tolist()}")
+
+        # (2b) the serve launcher's flags on the mesh: on one rank G = 1
+        # and the decode pin splits nothing, so both steps must be bit for
+        # bit the flag-free mesh steps
+        arch = cfg.name.replace("-", "_")
+        serve_flags = flags.launcher_defaults("serve", arch)
+        with perf_flags(serve_flags):
+            flash_attention.launches = 0
+            (fgot, _), flags_s = timed(
+                sync, lambda: mesh_flash(dparams, None, batch, 0, ident))
+            flags_launches = flash_attention.launches
+            ff, fpre, fdec, fgreedy = cached_greedy(
+                torch, on_mesh(step), dparams, schema.distribute(
+                    init_cache(cfg, mcfg.batch, seq, dev),
+                    rules.cache_shardings(cache_schema(cfg, mcfg.batch, seq),
+                                          mesh, mcfg.batch)),
+                batch, mcfg.tokens, sync, ident)
+        out["flags_serve"] = {
+            "flags": list(serve_flags), "cache_free_s": flags_s,
+            "cache_free_over_flag_free": flags_s / mesh_s,
+            "cache_free_bit_identical": bool(torch.equal(fgot.float(), got)),
+            "prefill_bit_identical": bool(torch.equal(ff.float(), fm)),
+            "prefill_s": fpre, "decode_ms_median": statistics.median(fdec),
+            "greedy_identical": bool((fgreedy == gm).all()),
+            "cache_free_flash": flags_launches}
+        if not (out["flags_serve"]["cache_free_bit_identical"]
+                and out["flags_serve"]["prefill_bit_identical"]
+                and out["flags_serve"]["greedy_identical"]):
+            raise AssertionError(f"the serve launcher's flags changed the "
+                                 f"one-rank mesh's steps: "
+                                 f"{out['flags_serve']}")
         del params, dparams, runs
 
         # (3) one float32 train step at reduced depth, without and with it
@@ -3323,6 +3492,53 @@ def phase_mesh(torch, cfg, mcfg: MeshPhaseConfig, device, sync) -> dict:
                 # a second step, timed alone (the first warms up)
                 _, rec["step_s"] = timed(sync, lambda: tstep(p, st, tbatch))
             train[name] = rec
+        # the train launcher's flags with REPRO_PERF_DEFER_GRAD_SYNC (on one
+        # rank bit for bit the flag-free mesh step), then with
+        # REPRO_PERF_BF16_ACCUM too (the loss the same; the masters' gap
+        # reported, not gated)
+        train_flags = flags.launcher_defaults("train", arch) + (
+            "DEFER_GRAD_SYNC",)
+        for name, names in (("defer", train_flags),
+                            ("bf16_accum", train_flags + ("BF16_ACCUM",))):
+            with perf_flags(names):
+                fstep = make_train_step(ccfg, ocfg, microbatches=2,
+                                        collect_moe=True)
+                p = schema.distribute(
+                    tree_map(lambda a: a.to(dev, copy=True), weights), shard)
+                st = opt_init(p)
+                with ctx.use_mesh(mesh):
+                    (p, st, m), step_s = timed(
+                        sync, lambda: fstep(p, st, tbatch))
+            train[name] = {
+                "flags": list(names), "loss": float(m["loss"]),
+                "grad_norm": float(m["grad_norm"]), "step_s": step_s,
+                "master": [x.full_tensor().to("cpu", copy=True)
+                           for x in _leaves(st["master"])]}
+        flagged = {}
+        for name in ("defer", "bf16_accum"):
+            r, base = train[name], train["mesh"]
+            flagged[name] = {
+                "flags": r["flags"], "loss": r["loss"],
+                "grad_norm": r["grad_norm"], "step_s": r["step_s"],
+                "first_step_over_flag_free": r["step_s"] / base["first_s"],
+                "loss_equal": r["loss"] == base["loss"],
+                "finite": bool(np.isfinite([r["loss"], r["grad_norm"]]).all()),
+                "master_max_abs_gap": max(
+                    float((x - y).abs().max())
+                    for x, y in zip(r["master"], base["master"])),
+                "master_max_abs_gap_over_lr": max(
+                    float((x - y).abs().max()) for x, y in
+                    zip(r["master"], base["master"])) / ocfg.lr}
+        flagged["defer"]["bit_identical"] = (
+            flagged["defer"]["master_max_abs_gap"] == 0.0
+            and train["defer"]["grad_norm"] == train["mesh"]["grad_norm"]
+            and flagged["defer"]["loss_equal"])
+        if not flagged["defer"]["bit_identical"]:
+            raise AssertionError(f"REPRO_PERF_DEFER_GRAD_SYNC changed the "
+                                 f"one-rank mesh's train step: {flagged}")
+        if not (flagged["bf16_accum"]["finite"]
+                and flagged["bf16_accum"]["loss_equal"]):
+            raise AssertionError(f"REPRO_PERF_BF16_ACCUM's step: {flagged}")
         gap = max(float((x - y).abs().max()) for x, y in
                   zip(train["mesh"]["master"], train["plain"]["master"]))
         a, b = train["mesh"], train["plain"]
@@ -3344,14 +3560,15 @@ def phase_mesh(torch, cfg, mcfg: MeshPhaseConfig, device, sync) -> dict:
             "step_s": [a["step_s"], b["step_s"]],
             "mesh_over_plain": a["step_s"] / b["step_s"],
             "placements_kept": a["placements_kept"],
-            "opt_layout": a["opt_layout"],
+            "opt_layout": a["opt_layout"], "flags": flagged,
             "within_tolerance": {
                 "loss": abs(a["loss"] - b["loss"])
                 <= CARD_CPU_TOL["loss_rtol"] * abs(b["loss"]),
                 "grad_norm": abs(a["grad_norm"] - b["grad_norm"])
                 <= CARD_CPU_TOL["grad_norm_rtol"] * abs(b["grad_norm"]),
                 "master": gap <= CARD_CPU_TOL["master_atol_lr"] * ocfg.lr}}
-    out["launches"] = {"cache_free_flash": launches}
+    out["launches"] = {"cache_free_flash": launches,
+                       "cache_free_flash_flags": flags_launches}
     out["flash_inputs"] = flash_inputs
     if dev.type == "cuda":
         out["device_memory_peak_bytes"] = torch.cuda.max_memory_allocated()
@@ -3653,6 +3870,7 @@ def main() -> int:
                       sync)
     mesh_flash = mesh["launches"]["cache_free_flash"]
     if mesh_flash != mesh["n_layers"] or \
+            mesh["launches"]["cache_free_flash_flags"] != mesh["n_layers"] or \
             mesh["cache_free"]["flash_calls"] != {"0": mesh["n_layers"]}:
         raise AssertionError(f"the mesh's cache-free step did not launch "
                              f"the flash kernel once per layer: "

@@ -27,8 +27,9 @@ from .reference import (REFERENCE_ALGORITHMS, reference_minmig,
 from .simple import simple
 from .sketch import (CountMinSketch, SketchConfig, SketchStats,
                      SpaceSavingTracker)
-from .strategy import (ChoiceRouter, PartialKeyGrouping, PartitionStrategy,
-                       PowerOfBothChoices, TablePlanner, WChoices,
+from .strategy import (ALGORITHMS, ChoiceRouter, PartialKeyGrouping,
+                       PartitionStrategy, PowerOfBothChoices, TablePlanner,
+                       WChoices,
                        register_planner, register_strategy, resolve_strategy,
                        strategy_names)
 from .types import (Assignment, BalanceConfig, HashRouter, KeyStats,
@@ -64,6 +65,6 @@ __all__ = [
     "CountMinSketch", "SketchConfig", "SketchStats", "SpaceSavingTracker",
     "PartitionStrategy", "TablePlanner", "ChoiceRouter",
     "PartialKeyGrouping", "PowerOfBothChoices", "WChoices",
-    "register_planner",
+    "register_planner", "ALGORITHMS",
     "register_strategy", "resolve_strategy", "strategy_names",
 ]

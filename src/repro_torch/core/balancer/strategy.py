@@ -28,9 +28,10 @@ One ``algorithm=`` spec grammar (the controller, ``KeyedStage`` and
   (routers are stateful: one instance per controller).
 
 Every strategy the JAX package registers is registered here too: the table
-planners in ``balancer/__init__.py``, the three routers below. The JAX
-package's deprecated ``ALGORITHMS`` dict view is not ported, by decision:
-nothing in this package reads it, and the registry is its replacement.
+planners in ``balancer/__init__.py``, the three routers below. The legacy
+``ALGORITHMS`` dict survives as a read-only deprecated view over the
+registered table planners (:data:`ALGORITHMS`), as in the JAX package;
+resolve through the registry instead.
 
 Choice-router semantics
 -----------------------
@@ -50,6 +51,8 @@ candidates are not sent through the routing kernel (a launch per chunk).
 
 from __future__ import annotations
 
+import warnings
+from collections.abc import Mapping
 from typing import Callable, Dict, Optional, Tuple
 
 import numpy as np
@@ -166,8 +169,14 @@ class TablePlanner(PartitionStrategy):
         return self.fn(stats, assignment, config)
 
 
+#: raw name -> planner callable for the registered table planners — the
+#: backing store of the deprecated :data:`ALGORITHMS` view.
+PLANNERS: Dict[str, Callable] = {}
+
+
 def register_planner(name: str, fn) -> None:
     """Register a planner callable under ``name`` as a :class:`TablePlanner`."""
+    PLANNERS[name] = fn
     STRATEGIES[name] = lambda fn=fn, name=name: TablePlanner(fn, name)
 
 
@@ -394,3 +403,47 @@ class WChoices(ChoiceRouter):
         cand[is_head] = np.arange(self.n_dest, dtype=np.int64)
         dk = np.where(is_head, self.n_dest, d).astype(np.int64)
         return cand, dk
+
+
+class _AlgorithmsView(Mapping):
+    """Deprecated read-only view of the registered table planners.
+
+    Preserves the legacy ``ALGORITHMS`` dict surface (lookups, iteration,
+    membership); every access warns. New code resolves through
+    :func:`strategy_names` / :func:`resolve_strategy`, which also cover the
+    choice routers this dict never could.
+    """
+
+    def __init__(self, backing: Dict[str, Callable]):
+        self._backing = backing
+
+    @staticmethod
+    def _warn() -> None:
+        warnings.warn(
+            "repro_torch.core.balancer.ALGORITHMS is deprecated; use the "
+            "strategy registry instead (repro_torch.core.balancer.strategy: "
+            "strategy_names() / resolve_strategy()), which also exposes the "
+            "choice routers (pkg/potc/wchoices)",
+            DeprecationWarning, stacklevel=3)
+
+    def __getitem__(self, name):
+        self._warn()
+        return self._backing[name]
+
+    def __iter__(self):
+        self._warn()
+        return iter(self._backing)
+
+    def __len__(self):
+        self._warn()
+        return len(self._backing)
+
+    def __contains__(self, name):
+        self._warn()
+        return name in self._backing
+
+    def __repr__(self):
+        return f"ALGORITHMS({list(self._backing)})"
+
+
+ALGORITHMS = _AlgorithmsView(PLANNERS)

@@ -8,21 +8,18 @@
 * :mod:`.specs`: the (shape, dtype) stand-ins of every cell's inputs,
   parameters and caches;
 * :mod:`.dryrun`: ``lower_cell``, the cell's step traced on the ``meta``
-  device (FLOPs by ``FlopCounterMode``, 2- and 3-group probes) and its
-  bytes per device under the mesh's shardings;
-* :mod:`.roofline`: the FLOP model and the H100's compute and memory
-  bounds over the dry-run reports.
+  device (FLOPs by ``FlopCounterMode``, 2- and 3-group probes), its bytes
+  per device under the mesh's shardings, and the step again as DTensors
+  on the production mesh over a fake process group (in a subprocess): its
+  collective bytes per family and its memory per device, the JAX
+  package's ``collective_bytes`` and ``compiled.memory_analysis``;
+* :mod:`.roofline`: the FLOP model and the H100's compute, memory and
+  collective bounds over the dry-run reports.
 
-Not ported, with the reason:
+The launchers turn on the JAX launchers' ``REPRO_PERF_*`` flags for their
+run unless given ``--no-perf-flags`` (:mod:`repro_torch.flags`).
 
-* ``dryrun.collective_bytes``: it parses XLA's optimized HLO text for
-  collective ops. The port has no compiler-partitioned program to parse:
-  its collectives are DTensor redistributions issued at run time, and the
-  roofline has no link rate to charge them against until one is measured.
-* ``compiled.memory_analysis``: XLA's buffer assignment of a compiled
-  program. The dry run reports the resident bytes per device from the
-  shardings instead; the peak of a real step is measured on the card
-  (``torch.cuda.max_memory_allocated``, ``chip_smoke.py``).
-* ``kernels/compat.py``: a shim over Pallas API drift between JAX
-  versions (``CompilerParams``); the port has no Pallas.
+Not ported, with the reason: ``kernels/compat.py``, a shim over Pallas
+API drift between JAX versions (``CompilerParams``); the port has no
+Pallas.
 """

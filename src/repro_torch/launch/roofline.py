@@ -1,16 +1,26 @@
 """Roofline analysis over the port's dry-run reports — the JAX package's
 ``launch/roofline.py`` for one NVIDIA H100.
 
-Per (arch x shape x mesh) cell, two per-step time lower bounds on the card:
+Per (arch x shape x mesh) cell, three per-step time lower bounds on the
+card:
 
-  compute = FLOPs per device / peak FLOP/s   (989e12, dense bf16)
-  memory  = resident bytes per device / HBM bandwidth   (3.35e12 B/s)
+  compute    = FLOPs per device / peak FLOP/s   (989e12, dense bf16)
+  memory     = resident bytes per device / HBM bandwidth   (3.35e12 B/s)
+  collective = link bytes per device / link rate   (450e9 B/s)
 
 The peaks are NVIDIA's data sheet for the H100 SXM (80 GB HBM3) at its
 full 700 W power limit; a card set below 700 W runs slower under load, so
-a bound read beside a measurement names the card's limit too. There is no
-collective bound: the port has no measured link rate yet, and the TPU
-v5e's (50 GB/s a link), like its 197 TF and 819 GB/s, do not carry over.
+a bound read beside a measurement names the card's limit too. The link
+rate is the same data sheet's NVLink 4 figure, 900 GB/s a card in both
+directions together, so 450 GB/s each way: a data-sheet figure, not a
+measurement (none of the TPU's rates carry over). The link bytes are the
+dry run's collective bytes per device, an all-reduce counted 2x (a ring's
+reduce-scatter and all-gather), as the JAX package counts them. The term
+leaves out what a 256-card mesh adds: NVLink joins the 8 cards of one
+node, and the rest cross the nodes' network at a fraction of that rate;
+the hops and latency of each collective; and any overlap with compute.
+The four-card cell of the port's benchmark (ROADMAP A8) measures a link.
+``peak_hbm_gb`` is the dry run's ``memory["peak_bytes"]`` per device.
 
 Sources (:mod:`.dryrun`): the step's FLOPs as
 ``torch.utils.flop_counter.FlopCounterMode`` counts them on the ``meta``
@@ -41,6 +51,9 @@ from ..models.config import SHAPES
 CARD = "NVIDIA H100 80GB HBM3, 700 W"
 PEAK_FLOPS = 989e12          # dense bf16 per card (tensor cores)
 HBM_BW = 3.35e12             # bytes/s per card
+#: NVLink 4 of the H100 SXM (NVIDIA's data sheet: 900 GB/s a card, both
+#: directions together), bytes/s each way
+LINK_BW = 450e9
 
 RESULTS_DIR = Path(__file__).resolve().parents[3] / "experiments" / \
     "dryrun_torch"
@@ -115,14 +128,24 @@ class Roofline:
     mesh: str
     compute_s: float
     memory_s: float
+    collective_s: float
     dominant: str
     model_flops: float
     flops_device: float
     useful_ratio: float
-    bound_frac: float           # compute_s / max(both) = roofline fraction
+    bound_frac: float           # compute_s / max(all three)
     resident_gb: float
+    peak_hbm_gb: float
     card: str = CARD
     note: str = ""
+
+
+def link_bytes(collective_bytes: dict) -> float:
+    """Bytes a device moves over its links for the dry run's collective
+    bytes: an all-reduce 2x its payload (reduce-scatter + all-gather), the
+    others 1x."""
+    return sum(v * (2.0 if op == "all-reduce" else 1.0)
+               for op, v in collective_bytes.items())
 
 
 def analyze(report: dict) -> Optional[Roofline]:
@@ -138,15 +161,20 @@ def analyze(report: dict) -> Optional[Roofline]:
     bytes_dev = report["bytes_per_device"]["total"]
     compute_s = flops_dev / PEAK_FLOPS
     memory_s = bytes_dev / HBM_BW
-    dominant = "compute" if compute_s >= memory_s else "memory"
+    collective_s = link_bytes(report["collective_bytes"]) / LINK_BW
+    terms = {"compute": compute_s, "memory": memory_s,
+             "collective": collective_s}
+    dominant = max(terms, key=terms.get)
     mf = model_flops(cfg, shape)
     useful = mf / dev / flops_dev if flops_dev else 0.0
     return Roofline(
         arch=report["arch"], shape=report["shape"], mesh=report["mesh"],
-        compute_s=compute_s, memory_s=memory_s, dominant=dominant,
-        model_flops=mf, flops_device=flops_dev, useful_ratio=useful,
-        bound_frac=compute_s / max(compute_s, memory_s, 1e-30),
+        compute_s=compute_s, memory_s=memory_s, collective_s=collective_s,
+        dominant=dominant, model_flops=mf, flops_device=flops_dev,
+        useful_ratio=useful,
+        bound_frac=compute_s / max(max(terms.values()), 1e-30),
         resident_gb=bytes_dev / 1e9,
+        peak_hbm_gb=report["memory"]["peak_bytes"] / 1e9,
         note="; ".join(f"{k} replicated ({v})" for k, v in
                        report.get("replicated_fallbacks", {}).items()))
 
@@ -166,9 +194,10 @@ def load_all(tag: str = "", results_dir: Path = RESULTS_DIR
 
 def table(mesh: str = "single", tag: str = "",
           results_dir: Path = RESULTS_DIR) -> str:
-    rows = [f"| arch | shape | compute s | memory s | dominant | MODEL/counted "
-            f"| roofline frac | resident GB/dev | ({CARD}) |",
-            "|" + "---|" * 9]
+    rows = [f"| arch | shape | compute s | memory s | collective s "
+            f"| dominant | MODEL/counted | roofline frac | resident GB/dev "
+            f"| peak GB/dev | ({CARD}) |",
+            "|" + "---|" * 11]
     for rep in load_all(tag, results_dir).values():
         if rep.get("mesh") != mesh:
             continue
@@ -176,12 +205,13 @@ def table(mesh: str = "single", tag: str = "",
         if r is None:
             status = rep.get("reason", rep.get("error", "?"))[:40]
             rows.append(f"| {rep.get('arch')} | {rep.get('shape')} | - | - "
-                        f"| {status} | - | - | - | |")
+                        f"| - | {status} | - | - | - | - | |")
             continue
         rows.append(
             f"| {r.arch} | {r.shape} | {r.compute_s:.3e} | {r.memory_s:.3e} "
-            f"| **{r.dominant}** | {r.useful_ratio:.2f} | {r.bound_frac:.2f} "
-            f"| {r.resident_gb:.1f} | {r.note} |")
+            f"| {r.collective_s:.3e} | **{r.dominant}** "
+            f"| {r.useful_ratio:.2f} | {r.bound_frac:.2f} "
+            f"| {r.resident_gb:.1f} | {r.peak_hbm_gb:.1f} | {r.note} |")
     return "\n".join(rows)
 
 

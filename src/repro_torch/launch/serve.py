@@ -21,7 +21,12 @@ decode steps; a vision arch (internvl2) a random prefix of pixel
 embeddings, which the cache and the decode index make room for.
 ``serve_local(mesh=...)`` runs every step on DTensors under a device mesh
 (``sharding.ctx.use_mesh``). ``--mode lower`` prints the full config's
-dry run (:func:`repro_torch.launch.dryrun.lower_cell`).
+dry run (:func:`repro_torch.launch.dryrun.lower_cell`): FLOPs, bytes per
+device, collective bytes per family and peak memory per device.
+
+As the JAX launcher does, :func:`main` turns on ``REPRO_PERF_DECODE_WS``
+and ``REPRO_PERF_MOE_GROUPED`` (``os.environ.setdefault``: a value already
+set stays) unless given ``--no-perf-flags`` (:mod:`repro_torch.flags`).
 """
 
 from __future__ import annotations
@@ -32,6 +37,7 @@ from typing import List, Optional, Tuple
 import numpy as np
 import torch
 
+from .. import flags
 from ..configs import smoke_config
 from ..models import cache_schema, init_cache, model_schema, schema
 from ..models.transformer import encode
@@ -158,6 +164,13 @@ def _lay_out(cfg: ModelConfig, params, cache, batch: int, max_seq: int,
 
 
 def main(argv=None) -> None:
+    args = _args(argv)
+    with flags.launcher_defaults_set("serve", args.arch.replace("-", "_"),
+                                     not args.no_perf_flags):
+        _run(args)
+
+
+def _args(argv):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--arch", required=True)
     ap.add_argument("--mode", choices=["local", "lower"], default="local")
@@ -168,7 +181,11 @@ def main(argv=None) -> None:
     ap.add_argument("--tokens", type=int, default=16)
     ap.add_argument("--device", default=None,
                     help="torch device (default: the CUDA card)")
-    args = ap.parse_args(argv)
+    ap.add_argument("--no-perf-flags", action="store_true")
+    return ap.parse_args(argv)
+
+
+def _run(args) -> None:
     arch = args.arch.replace("-", "_")
     if args.mode == "lower":
         import json

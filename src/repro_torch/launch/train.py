@@ -11,8 +11,15 @@ checkpoints -> SkewShield for MoE archs).
 
 ``--device`` defaults to the CUDA card. A run resumes from the newest
 checkpoint in ``--ckpt`` when there is one. ``--mode lower`` prints the
-full config's dry run (:func:`repro_torch.launch.dryrun.lower_cell`). Not
-ported: the JAX launcher's ``REPRO_PERF_*`` flags, which steer XLA.
+full config's dry run (:func:`repro_torch.launch.dryrun.lower_cell`),
+whose train cell counts the JAX dry run's microbatches unless
+``--microbatches`` is given.
+
+As the JAX launcher does, :func:`main` turns on ``REPRO_PERF_MOE_GROUPED``,
+and ``REPRO_PERF_ATTN_SHARD`` for the five archs whose heads do not divide
+the production mesh's "model" axis (``os.environ.setdefault``: a value
+already set stays), unless given ``--no-perf-flags``
+(:mod:`repro_torch.flags`).
 """
 
 from __future__ import annotations
@@ -22,6 +29,7 @@ import argparse
 import numpy as np
 import torch
 
+from .. import flags
 from ..configs import smoke_config
 from ..data.pipeline import KeyedDataPipeline, zipf_sources
 from ..train.optimizer import OptConfig
@@ -43,6 +51,13 @@ def frontend_batch(cfg, batch: int, step: int) -> dict:
 
 
 def main(argv=None) -> None:
+    args = _args(argv)
+    with flags.launcher_defaults_set("train", args.arch.replace("-", "_"),
+                                     not args.no_perf_flags):
+        _run(args)
+
+
+def _args(argv):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--arch", required=True)
     ap.add_argument("--mode", choices=["local", "lower"], default="local")
@@ -51,17 +66,25 @@ def main(argv=None) -> None:
     ap.add_argument("--steps", type=int, default=20)
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--seq", type=int, default=128)
-    ap.add_argument("--microbatches", type=int, default=1)
+    ap.add_argument("--microbatches", type=int, default=None,
+                    help="microbatches a step (default 1; a dry run's train "
+                    "cell: the JAX dry run's count)")
     ap.add_argument("--ckpt", default="/tmp/repro_torch_ckpt")
     ap.add_argument("--device", default=None,
                     help="torch device (default: the CUDA card)")
-    args = ap.parse_args(argv)
+    ap.add_argument("--no-perf-flags", action="store_true")
+    return ap.parse_args(argv)
+
+
+def _run(args) -> None:
     arch = args.arch.replace("-", "_")
     if args.mode == "lower":
         import json
 
         from .dryrun import lower_cell
-        print(json.dumps(lower_cell(arch, args.shape, args.mesh), indent=1))
+        print(json.dumps(lower_cell(arch, args.shape, args.mesh,
+                                    microbatches=args.microbatches),
+                         indent=1))
         return
 
     cfg = smoke_config(arch)
@@ -78,7 +101,7 @@ def main(argv=None) -> None:
                 return out
 
     tcfg = TrainerConfig(total_steps=args.steps, checkpoint_every=10,
-                         microbatches=args.microbatches,
+                         microbatches=args.microbatches or 1,
                          skewshield=cfg.moe_experts > 0)
     tr = Trainer(cfg, OptConfig(lr=1e-3, warmup_steps=5,
                                 total_steps=args.steps),

@@ -7,17 +7,21 @@ into the cache tensors in place (the cache of a 12B model is gigabytes, and
 a copy per layer per decode step would double its traffic) and returns the
 same tensors.
 
-Not ported: the JAX package's env-gated XLA paths (``REPRO_PERF_ATTN_SHARD``,
-``REPRO_PERF_WINDOW_SLICE``) and the dry-run's ``unrolled_chunks`` probe,
-which are sharding and XLA cost-analysis tools.
+``REPRO_PERF_WINDOW_SLICE`` (:func:`_xla_attention`) sends a cache-free
+sliding-window layer's query chunks to their key band only, as the JAX
+package's flag does. ``REPRO_PERF_ATTN_SHARD`` (the ("dp", "tp") pins on q,
+k and v) is read by the mesh layer body, ``models.transformer``. Not
+ported: the dry run's ``unrolled_chunks`` probe, an XLA cost-analysis
+tool (the port's FLOP counter sees every chunk of the loop).
 """
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Callable, Optional, Tuple
 
 import torch
 
+from .. import flags
 from ..kernels import attention as flash_attention
 from .config import ModelConfig
 from .layers import dot, rope
@@ -84,21 +88,37 @@ def _xla_attention(q, k, v, *, causal: bool, window: int, q_positions,
                    kv_valid_len) -> torch.Tensor:
     """Query-chunked plain attention: never materializes the full (T, S)
     score matrix — the JAX package's pre-flash path, chunked the same way
-    (its ``lax.scan`` over chunks is a loop here)."""
+    (its ``lax.scan`` over chunks is a loop here).
+
+    With ``REPRO_PERF_WINDOW_SLICE`` set, a causal sliding-window call
+    without a cache (``kv_valid_len`` None, T = S) is always chunked, and
+    where ``window + chunk < S`` each query chunk attends over its key band
+    ``[chunk_start - window, chunk_end)`` only, the band's start clipped to
+    ``[0, S - (window + chunk)]``: the keys outside the band are the ones
+    the window masks, so the function is the same."""
     t = q.shape[2]
     s = k.shape[2]
-    if t * s <= _CHUNK_ELEMS or t <= 128:
+    window_slice = (flags.enabled("WINDOW_SLICE") and causal and window > 0
+                    and kv_valid_len is None and t == s)
+    if not window_slice and (t * s <= _CHUNK_ELEMS or t <= 128):
         return _attention_block(q, k, v, causal=causal, window=window,
                                 q_positions=q_positions,
                                 kv_valid_len=kv_valid_len)
     chunk = min(max(128, _CHUNK_ELEMS // s), t)
     while t % chunk:
         chunk -= 1
+    band = window + chunk if window_slice and window + chunk < s else None
     outs = []
     for c0 in range(0, t, chunk):
         pos = q_positions[..., c0:c0 + chunk]
+        if band is None:
+            kc, vc = k, v
+        else:
+            start = min(max(c0 - window, 0), s - band)
+            kc, vc = k[:, :, start:start + band], v[:, :, start:start + band]
+            pos = pos - start
         outs.append(_attention_block(
-            q[:, :, c0:c0 + chunk], k, v, causal=causal, window=window,
+            q[:, :, c0:c0 + chunk], kc, vc, causal=causal, window=window,
             q_positions=pos, kv_valid_len=kv_valid_len))
     return torch.cat(outs, dim=2)
 
@@ -135,11 +155,31 @@ def attend(p, cfg: ModelConfig, q: torch.Tensor, k: torch.Tensor,
            v: torch.Tensor, positions: torch.Tensor, window: int = 0,
            causal: bool = True, cache: Optional[dict] = None,
            cache_index: int = 0, cross: bool = False, use_rope: bool = True,
-           use_flash: bool = False, kv_heads: Optional[torch.Tensor] = None
+           use_flash: bool = False, kv_heads: Optional[torch.Tensor] = None,
+           pin: Optional[Callable] = None
            ) -> Tuple[torch.Tensor, Optional[dict]]:
     """:func:`attn` from the projections ``q`` (B, T, Hq*Dh), ``k`` and
     ``v`` (B, S, Hkv*Dh) on: the biases, RoPE, the cache, the attention
     and the output projection (``cross``: K/V from an encoder)."""
+    out, new_cache = attend_heads(
+        p, cfg, q, k, v, positions, window=window, causal=causal,
+        cache=cache, cache_index=cache_index, cross=cross,
+        use_rope=use_rope, use_flash=use_flash, kv_heads=kv_heads, pin=pin)
+    return dot(out, p["wo"]), new_cache
+
+
+def attend_heads(p, cfg: ModelConfig, q: torch.Tensor, k: torch.Tensor,
+                 v: torch.Tensor, positions: torch.Tensor, window: int = 0,
+                 causal: bool = True, cache: Optional[dict] = None,
+                 cache_index: int = 0, cross: bool = False,
+                 use_rope: bool = True, use_flash: bool = False,
+                 kv_heads: Optional[torch.Tensor] = None,
+                 pin: Optional[Callable] = None
+                 ) -> Tuple[torch.Tensor, Optional[dict]]:
+    """:func:`attend` before the output projection: the heads' outputs
+    (B, T, Hq*Dh). ``pin`` (``REPRO_PERF_ATTN_SHARD``'s layout check of
+    the mesh layer body) takes and returns the (B, H, S, Dh) q, k and v
+    where the JAX package pins them."""
     hq, hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.hd
     b, t, _ = q.shape
     if "bq" in p:
@@ -159,6 +199,8 @@ def attend(p, cfg: ModelConfig, q: torch.Tensor, k: torch.Tensor,
         new_cache = cache
         k_full = cache["k"].reshape(b, -1, hkv, dh).transpose(1, 2)
         v_full = cache["v"].reshape(b, -1, hkv, dh).transpose(1, 2)
+        if pin is not None:
+            qt, k_full, v_full = pin(qt, k_full, v_full)
         if kv_heads is not None:
             k_full, v_full = k_full[:, kv_heads], v_full[:, kv_heads]
         out = _xla_attention(qt, k_full, v_full, causal=True, window=window,
@@ -166,6 +208,8 @@ def attend(p, cfg: ModelConfig, q: torch.Tensor, k: torch.Tensor,
     else:
         k_full = kh.transpose(1, 2)
         v_full = _split_heads(v, hkv, dh).transpose(1, 2)
+        if pin is not None:
+            qt, k_full, v_full = pin(qt, k_full, v_full)
         if kv_heads is not None:
             k_full, v_full = k_full[:, kv_heads], v_full[:, kv_heads]
         if use_flash and causal and not cross:
@@ -175,5 +219,4 @@ def attend(p, cfg: ModelConfig, q: torch.Tensor, k: torch.Tensor,
             out = _xla_attention(qt, k_full, v_full, causal=causal,
                                  window=window, q_positions=positions,
                                  kv_valid_len=None)
-    out = out.transpose(1, 2).reshape(b, t, hq * dh)
-    return dot(out, p["wo"]), new_cache
+    return out.transpose(1, 2).reshape(b, t, hq * dh), new_cache

@@ -59,18 +59,42 @@ these layouts:
 * **mamba, sLSTM, mLSTM**: their scans and time loops have no sharding
   strategy, so each runs replicated on "model" with its weights and state
   gathered, on the rank's batch shard.
-* **MoE**: :func:`~repro_torch.models.moe.moe` (routing replicated,
+* **MoE**: :func:`~repro_torch.models.moe.moe` (routing replicated, or
+  per data shard in dispatch groups with ``REPRO_PERF_MOE_GROUPED``;
   experts over "model").
 * **embedding and logits**: the table is gathered for the lookup
   (``F.embedding`` takes no vocabulary-split table); the logits split the
   vocabulary over "model" ("dp", None, "tp"), and the loss gathers each
   chunk's vocabulary for its ``logsumexp``.
+
+The ``REPRO_PERF_*`` flags read here (:mod:`repro_torch.flags`):
+
+* ``DECODE_WS``: at decode (a cache, T = 1) on a mesh whose "data" axis
+  splits the layer's weights, :func:`_apply_sub` pins the activation's
+  embed dim to "sp" ("data") for the layer and back to "dp" after it, as
+  the JAX package does. The attention, dense MLP and MoE bodies then keep
+  every weight in its FSDP layout (``sharding.local.stationary``): the
+  norm's variance comes from the activation gathered over "data", each
+  product that contracts the embed dim sums this rank's rows' partial
+  products over "data" (an activation-sized all-reduce), and the output
+  projections compute this rank's slice of the embed dim. The attention
+  itself runs on the cache's batch shard. The recurrent layers keep their
+  replicated layout (their weights gathered), and the embedding and the
+  logits are outside the pinned span, as in the JAX package.
+* ``ATTN_SHARD``: the ("dp", "tp") pins on q, k and v. The layer body
+  already lays them out so (whole heads over "model" where they divide,
+  the batch over the data axes where it divides, never the head dim), so
+  the pin moves nothing; :func:`_attn_shard_pin` checks that it holds.
+* ``BF16_LOSS``: :func:`logits_from_hidden` casts the logits to bfloat16
+  before the vocabulary-padding mask (the loss's ``logsumexp`` stays in
+  float32).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import functools
+import math
 from typing import Any, Dict, Optional
 
 import torch
@@ -78,9 +102,13 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import (checkpoint,
                                     create_selective_checkpoint_contexts)
 
+from .. import flags
 from ..sharding import ctx as shard_ctx
-from ..sharding.local import (Local, layout_batch, mesh_of, model_size,
-                              residual)
+from ..sharding.local import (DATA_AXIS, Local, axis_size, axis_sum,
+                              batch_split, data_chunk, embed_sharded,
+                              fsdp_split, is_dtensor, layout_batch, mesh_of,
+                              model_size, replicated, residual, stationary,
+                              wait_local)
 from . import attention as attn_mod
 from . import layers
 from . import mamba as mamba_mod
@@ -230,11 +258,12 @@ def _attention(p, scale, cfg: ModelConfig, x, positions, eps: float, *,
     """The norm (replicated on "model") and the attention of one
     sub-layer; returns its output for the residual. ``cache`` ({"k",
     "v"}) is updated in place."""
-    mesh = mesh_of(x)
-    m = model_size(mesh)
-    hq, hkv = cfg.n_heads, cfg.n_kv_heads
-    q_split = m > 1 and hq % m == 0
-    kv_split = q_split and hkv % m == 0
+    if _ws(x):
+        return _attention_ws(p, scale, cfg, x, positions, eps,
+                             window=window, causal=causal, cache=cache,
+                             cache_index=cache_index, kv_source=kv_source,
+                             use_rope=use_rope)
+    q_split, kv_split, lcfg = _heads(cfg, model_size(mesh_of(x)))
     loc = Local.of(x, tp=q_split)
     qd, kvd = (1 if q_split else None), (1 if kv_split else None)
     lp = {"wq": loc.param(p["wq"], qd), "wk": loc.param(p["wk"], kvd),
@@ -244,21 +273,46 @@ def _attention(p, scale, cfg: ModelConfig, x, positions, eps: float, *,
         lp["bq"] = loc.param(p["bq"], 0 if q_split else None)
         lp["bk"] = loc.param(p["bk"], 0 if kv_split else None)
         lp["bv"] = loc.param(p["bv"], 0 if kv_split else None)
-    hl = hq // m if q_split else hq
-    lcfg = cfg if not q_split else dataclasses.replace(
-        cfg, n_heads=hl, n_kv_heads=hkv // m if kv_split else hkv,
-        head_dim=cfg.hd)
     h = _norm(scale, x, eps)
     src = h if kv_source is None else kv_source
     # each projection casts its own operand, in the order ``attn`` does:
     # autograd sums their rounded gradients
     q, k, v = (layers.dot(loc.act(_operand(a, p[w])), lp[w]) for a, w in
                ((h, "wq"), (src, "wk"), (src, "wv")))
+    return loc.out(_attend_local(
+        attn_mod.attend, loc, lp, cfg, lcfg, q, k, v, positions, cache,
+        window=window, causal=causal, cache_index=cache_index,
+        cross=kv_source is not None, use_rope=use_rope, use_flash=use_flash,
+        pin=_attn_shard_pin(loc, q_split, kv_split)))
+
+
+def _heads(cfg: ModelConfig, m: int):
+    """The attention's heads on a "model" axis of ``m`` ranks: whether the
+    query heads split there, whether the KV heads do too, and the config
+    of one rank's heads."""
+    hq, hkv = cfg.n_heads, cfg.n_kv_heads
+    q_split = m > 1 and hq % m == 0
+    kv_split = q_split and hkv % m == 0
+    lcfg = cfg if not q_split else dataclasses.replace(
+        cfg, n_heads=hq // m, n_kv_heads=hkv // m if kv_split else hkv,
+        head_dim=cfg.hd)
+    return q_split, kv_split, lcfg
+
+
+def _attend_local(fn, loc: Local, lp, cfg: ModelConfig, lcfg: ModelConfig,
+                  q, k, v, positions, cache, **kw):
+    """``fn`` (``attention.attend`` or ``attend_heads``) on the call's
+    local heads and batch shard: a rank that holds some query heads and
+    all the KV heads picks its query heads' KV heads, and the cache's
+    local shard takes the step's K/V in place (written back where it is
+    gathered)."""
+    q_split = lcfg.n_heads != cfg.n_heads
+    kv_split = lcfg.n_kv_heads != cfg.n_kv_heads
     kv_heads = None
     if q_split and not kv_split:
-        first = loc.model_rank * hl
-        kv_heads = torch.arange(first, first + hl,
-                                device=q.device) // (hq // hkv)
+        first = loc.model_rank * lcfg.n_heads
+        kv_heads = torch.arange(first, first + lcfg.n_heads, device=q.device
+                                ) // (cfg.n_heads // cfg.n_kv_heads)
     lcache, writes = None, []
     if cache is not None:
         lcache = {}
@@ -266,13 +320,131 @@ def _attention(p, scale, cfg: ModelConfig, x, positions, eps: float, *,
             lcache[name], write = loc.state(cache[name],
                                             2 if kv_split else None)
             writes.append(write)
-    out, _ = attn_mod.attend(
-        lp, lcfg, q, k, v, positions, window=window, causal=causal,
-        cache=lcache, cache_index=cache_index, cross=kv_source is not None,
-        use_rope=use_rope, use_flash=use_flash, kv_heads=kv_heads)
+    out, _ = fn(lp, lcfg, q, k, v, positions, cache=lcache,
+                kv_heads=kv_heads, **kw)
     for write in writes:
         write()
-    return loc.out(out)
+    return out
+
+
+def _attn_shard_pin(loc: Local, q_split: bool, kv_split: bool):
+    """``REPRO_PERF_ATTN_SHARD``'s ("dp", "tp", None, None) pins on the
+    local (B, H, S, Dh) q, k and v of a call on a mesh (None without the
+    flag or the mesh). The call already holds them so: the batch over the
+    data axes where it divides (the activation's own pin), and whole heads
+    over "model" exactly where the pin resolves "tp" to it (the query heads
+    where they divide the axis; the KV heads where they divide it too,
+    which their count's dividing the query heads' makes the same test). So
+    the pin checks the layout and moves nothing."""
+    if loc.mesh is None or not flags.enabled("ATTN_SHARD"):
+        return None
+    from torch.distributed.tensor import Replicate
+
+    from .schema import placements_for
+    mesh = loc.mesh
+    sizes = [int(mesh.size(i)) for i in range(mesh.ndim)]
+
+    def pin(qt, kt, vt):
+        b = qt.shape[0] * math.prod(n for n, s in zip(sizes, loc.split) if s)
+        for t, heads_split in ((qt, q_split), (kt, kv_split),
+                               (vt, kv_split)):
+            h = t.shape[1] * (model_size(mesh) if heads_split else 1)
+            want = placements_for(shard_ctx.resolve_spec(
+                mesh, (b, h) + tuple(t.shape[2:]), ("dp", "tp", None, None)),
+                mesh)
+            have = loc._placements(0, 1 if heads_split else None, False,
+                                   Replicate())
+            if any(n > 1 and a != w for n, a, w in zip(sizes, have, want)):
+                raise RuntimeError(
+                    f"REPRO_PERF_ATTN_SHARD: the layer holds {have}, the "
+                    f"pin asks for {want}")
+        return qt, kt, vt
+    return pin
+
+
+# ------------------------------------------------ weight-stationary decode --
+def _ws(x) -> bool:
+    """Whether ``x`` is in the decode-ws layout (``REPRO_PERF_DECODE_WS``):
+    a DTensor whose embed (last) dim is split over a "data" axis of size
+    > 1."""
+    if not is_dtensor(x) or axis_size(x.device_mesh, DATA_AXIS) < 2:
+        return False
+    pl = x.placements[tuple(x.device_mesh.mesh_dim_names).index(DATA_AXIS)]
+    return getattr(pl, "dim", None) == x.dim() - 1
+
+
+def _ws_norm(scale, x, eps: float) -> torch.Tensor:
+    """RMSNorm of the decode-ws ``x``: the variance over the activation
+    gathered on "data", times this rank's slice of the scale (kept split
+    there); the local (B, T, D / data) slice of the normed activation,
+    element for element ``layers.rmsnorm``'s."""
+    mesh = x.device_mesh
+    h = replicated(x).to_local().to(torch.float32)
+    var = torch.mean(h * h, dim=-1, keepdim=True)
+    return (data_chunk(h, mesh) * torch.rsqrt(var + eps)
+            * stationary(scale)).to(x.dtype)
+
+
+def _ws_in(hs: torch.Tensor, w, model_dim: Optional[int] = None
+           ) -> torch.Tensor:
+    """``h @ w`` from this rank's embed slice ``hs`` of ``h`` and its rows
+    of ``w`` (the embed dim, split over "data"): the partial products
+    summed over "data"; the columns split on "model" along ``model_dim``
+    of ``w``."""
+    return axis_sum(layers.dot(hs, stationary(w, model_dim)), w.device_mesh)
+
+
+def _ws_out(a: torch.Tensor, w, model_dim: Optional[int] = None
+            ) -> torch.Tensor:
+    """This rank's embed slice of ``a @ w``, ``w``'s columns (the embed
+    dim) split over "data"; a partial sum over "model" where ``w``'s rows
+    split there (``model_dim`` 0)."""
+    return layers.dot(a, stationary(w, model_dim))
+
+
+def _rows(t: torch.Tensor, loc: Local, gather: bool) -> torch.Tensor:
+    """The local ``t``'s batch rows cut to ``loc``'s batch shard (``gather``
+    False: a local slice of all the rows), or gathered whole from it (an
+    activation all-gather over the data axes the batch splits on)."""
+    if not any(loc.split):
+        return t
+    from torch.distributed.tensor import Replicate, Shard
+    rows = [Shard(0) if s else Replicate() for s in loc.split]
+    whole = [Replicate()] * len(loc.split)
+    src, dst = (rows, whole) if gather else (whole, rows)
+    return wait_local(loc.wrap(t, src).redistribute(loc.mesh, dst))
+
+
+def _attention_ws(p, scale, cfg: ModelConfig, x, positions, eps: float, *,
+                  window: int, causal: bool, cache, cache_index: int,
+                  kv_source, use_rope: bool):
+    """:func:`_attention` in the decode-ws layout (see the module
+    docstring): q, k and v from the stationary weights, the attention on
+    the cache's batch shard (all rows without a cache), and this rank's
+    embed slice of the output projection."""
+    mesh = x.device_mesh
+    q_split, kv_split, lcfg = _heads(cfg, model_size(mesh))
+    qd, kvd = (1 if q_split else None), (1 if kv_split else None)
+    hs = _ws_norm(scale, x, eps)
+    srcs = hs if kv_source is None else data_chunk(
+        replicated(kv_source).to_local(), mesh)
+    q = _ws_in(hs, p["wq"], qd)
+    k, v = _ws_in(srcs, p["wk"], kvd), _ws_in(srcs, p["wv"], kvd)
+    lp = {}
+    for name, split in (("bq", q_split), ("bk", kv_split), ("bv", kv_split)):
+        if name in p:
+            lp[name] = stationary(p[name], 0 if split else None)
+    split = (batch_split(cache["k"]) if cache is not None
+             else (False,) * mesh.ndim)
+    lb = Local(mesh, split, tp=q_split)
+    q, k, v = (_rows(a, lb, gather=False) for a in (q, k, v))
+    heads = _attend_local(
+        attn_mod.attend_heads, lb, lp, cfg, lcfg, q, k, v, positions, cache,
+        window=window, causal=causal, cache_index=cache_index,
+        cross=kv_source is not None, use_rope=use_rope)
+    heads = _rows(heads, lb, gather=True)
+    out = _ws_out(heads, p["wo"], 0 if q_split else None)
+    return embed_sharded(out, mesh, partial_model=q_split)
 
 
 def _mlp(p, scale, cfg: ModelConfig, x, eps: float):
@@ -280,8 +452,15 @@ def _mlp(p, scale, cfg: ModelConfig, x, eps: float):
     sub-layer, its hidden columns split over "model" where they divide."""
     m = model_size(mesh_of(x))
     split = m > 1 and cfg.d_ff % m == 0
-    loc = Local.of(x, tp=split)
     cols = 1 if split else None
+    if _ws(x):
+        hs = _ws_norm(scale, x, eps)
+        gate = F.silu(_ws_in(hs, p["w_gate"], cols))
+        up = _ws_in(hs, p["w_up"], cols)
+        return embed_sharded(_ws_out(gate * up, p["w_down"],
+                                     0 if split else None),
+                             x.device_mesh, partial_model=split)
+    loc = Local.of(x, tp=split)
     lp = {"w_gate": loc.param(p["w_gate"], cols),
           "w_up": loc.param(p["w_up"], cols),
           "w_down": loc.param(p["w_down"], 0 if split else None)}
@@ -324,6 +503,12 @@ def _apply_sub(p, cfg: ModelConfig, j: int, x, positions, cache, cache_index,
     sub-layer with a cache writes its new state into the cache in place."""
     kind = cfg.layer_pattern[j]
     eps = cfg.norm_eps
+    # weight-stationary decode (REPRO_PERF_DECODE_WS, the module docstring):
+    # where "data" splits the layer's weights, the embed dim goes to "sp"
+    decode_ws = (flags.enabled("DECODE_WS") and cache is not None
+                 and x.shape[1] == 1 and fsdp_split(p["norm"]["scale"]))
+    if decode_ws:
+        x = shard_ctx.constrain(x, None, None, "sp")
     if kind == "attn":
         out = _attention(p["attn"], p["norm"]["scale"], cfg, x, positions,
                          eps, window=cfg.layer_window(j), cache=cache,
@@ -342,14 +527,22 @@ def _apply_sub(p, cfg: ModelConfig, j: int, x, positions, cache, cache_index,
     if "mlp" in p:
         x = residual(x, _mlp(p["mlp"], p["mlp_norm"]["scale"], cfg, x, eps))
     elif "moe" in p:
-        h = _norm(p["mlp_norm"]["scale"], x, eps)
-        if collect_moe:
-            out, stats = moe_mod.moe(p["moe"], cfg, h, placement=placement,
-                                     return_stats=True)
-            moe_load = stats["expert_load"]
+        if _ws(x):
+            out = moe_mod.moe_stationary(
+                p["moe"], cfg, _ws_norm(p["mlp_norm"]["scale"], x, eps),
+                x.device_mesh, placement=placement, return_stats=collect_moe)
         else:
-            out = moe_mod.moe(p["moe"], cfg, h, placement=placement)
+            out = moe_mod.moe(p["moe"], cfg,
+                              _norm(p["mlp_norm"]["scale"], x, eps),
+                              placement=placement, return_stats=collect_moe)
+        if collect_moe:
+            out, stats = out
+            moe_load = stats["expert_load"]
+        if _ws(x):
+            out = embed_sharded(out, x.device_mesh)
         x = residual(x, out)
+    if decode_ws:
+        x = shard_ctx.constrain(x, "dp", None, None)
     return x, moe_load
 
 
@@ -510,6 +703,10 @@ def logits_from_hidden(params, cfg: ModelConfig, hidden: torch.Tensor
     else:
         logits = layers.unembed({"w": loc.param(params["unembed"]["w"],
                                                 1 if split else None)}, h)
+    if flags.enabled("BF16_LOSS"):
+        # the (B, T, V) logits stay bfloat16 until the loss's float32
+        # logsumexp (the JAX package's flag)
+        logits = logits.to(torch.bfloat16)
     # mask vocab padding
     if cfg.vocab_padded != cfg.vocab:
         mask = torch.zeros(cfg.vocab_padded, dtype=logits.dtype,

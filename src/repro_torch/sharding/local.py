@@ -30,15 +30,30 @@ signatures have been stable across the torch releases the port runs on.
 On plain tensors (no mesh) every layout is the identity: :meth:`Local.of`
 a plain tensor hands each tensor back as it is, so the model's one body
 per layer runs op for op as the unsharded code.
+
+**Weight-stationary decode** (``REPRO_PERF_DECODE_WS``,
+``models.transformer``): at decode the activation is a few rows while an
+FSDP weight gather moves the layer's weights, so a layer takes its
+activation with the embed dim split over "data" instead, and its
+products keep each weight as laid out (:func:`stationary`): a product
+that contracts the embed dim multiplies this rank's slice of the
+activation (:func:`data_chunk`) by its rows of the weight and all-reduces
+the activation-sized partial sums over "data" (:func:`axis_sum`); a
+product whose output dim is the embed dim computes this rank's slice of
+it. These run under ``no_grad`` (the serve step), so they carry no
+gradient layouts.
 """
 
 from __future__ import annotations
 
+import contextlib
+import types
 from typing import Callable, Optional, Tuple
 
 import torch
 
 DP_AXES = ("pod", "data")
+DATA_AXIS = "data"
 MODEL_AXIS = "model"
 
 
@@ -56,6 +71,11 @@ def _wait(t: torch.Tensor) -> torch.Tensor:
     return t.wait() if isinstance(t, AsyncCollectiveTensor) else t
 
 
+def wait_local(x) -> torch.Tensor:
+    """The DTensor ``x``'s local shard, its collective completed."""
+    return _wait(x.to_local())
+
+
 def batch_split(x) -> Tuple[bool, ...]:
     """Per mesh dim: whether the DTensor ``x`` splits its dim 0 there (a
     data axis holding a shard of the batch)."""
@@ -65,14 +85,19 @@ def batch_split(x) -> Tuple[bool, ...]:
                  for n, p in zip(names, x.placements))
 
 
-def model_size(mesh) -> int:
-    """The size of ``mesh``'s "model" axis (1 without one, or without a
+def axis_size(mesh, axis: str) -> int:
+    """The size of ``mesh``'s axis ``axis`` (1 without one, or without a
     mesh)."""
     if mesh is None:
         return 1
     names = tuple(mesh.mesh_dim_names)
-    return int(mesh.size(names.index(MODEL_AXIS))) if MODEL_AXIS in names \
-        else 1
+    return int(mesh.size(names.index(axis))) if axis in names else 1
+
+
+def model_size(mesh) -> int:
+    """The size of ``mesh``'s "model" axis (1 without one, or without a
+    mesh)."""
+    return axis_size(mesh, MODEL_AXIS)
 
 
 class Local:
@@ -138,12 +163,16 @@ class Local:
 
     def param(self, w, model_dim: Optional[int] = None) -> torch.Tensor:
         """A weight gathered on the data axes, split on "model" along
-        ``model_dim`` (None: replicated)."""
+        ``model_dim`` (None: replicated). Within
+        :func:`unreduced_data_grads`, a weight already replicated on the
+        data axes keeps its gradient a partial sum there."""
         if self.mesh is None:
             return w
         _, _, Replicate, Shard = _types()
         want = self._placements(None, model_dim, False, Replicate())
         grad = self._placements(None, model_dim, True, self._model_grad())
+        if _grads.unreduced and tuple(w.placements) != tuple(want):
+            w = _Relayout.apply(w, tuple(want))
         return self._local(w, want, grad)
 
     def state(self, c, model_dim: Optional[int] = None,
@@ -194,6 +223,48 @@ class Local:
         return replicated(self.wrap(t, placements)).to_local()
 
 
+#: whether weight gradients stay unreduced on the data axes
+#: (:func:`unreduced_data_grads`); process-wide, as the autograd engine runs
+#: a CUDA backward (and remat's recompute in it) on its own device threads
+_grads = types.SimpleNamespace(unreduced=False)
+
+
+@contextlib.contextmanager
+def unreduced_data_grads():
+    """Within the block, :meth:`Local.param` keeps the gradient of a weight
+    that is replicated on the data axes a partial sum there (DTensor
+    ``Partial``) through its relayout on the other axes, instead of
+    all-reducing it, as DTensor's own backward of that relayout does: the
+    train step's deferred gradient sync (``REPRO_PERF_DEFER_GRAD_SYNC``)
+    sums the microbatches' partial gradients locally and reduces once."""
+    prev = _grads.unreduced
+    _grads.unreduced = True
+    try:
+        yield
+    finally:
+        _grads.unreduced = prev
+
+
+class _Relayout(torch.autograd.Function):
+    """A DTensor redistributed to ``placements``; its backward brings the
+    gradient back to the input's placements except on a data axis where
+    the input is replicated and the gradient is a partial sum: there it
+    stays partial."""
+
+    @staticmethod
+    def forward(ctx, w, placements):
+        ctx.mesh, ctx.placements = w.device_mesh, tuple(w.placements)
+        return w.redistribute(w.device_mesh, list(placements))
+
+    @staticmethod
+    def backward(ctx, grad):
+        names = ctx.mesh.mesh_dim_names
+        want = [g if (n in DP_AXES and g.is_partial() and p.is_replicate())
+                else p for n, g, p in zip(names, grad.placements,
+                                          ctx.placements)]
+        return grad.redistribute(ctx.mesh, want), None
+
+
 def replicated(x):
     """The DTensor ``x`` replicated on every mesh dim (a plain tensor as it
     is)."""
@@ -240,3 +311,73 @@ def layout_batch(batch: dict, mesh) -> dict:
             t = distribute_tensor(t, mesh, list(placements_for(spec, mesh)))
         out[name] = t
     return out
+
+
+# ------------------------------------------------ weight-stationary decode --
+def _on_axes(mesh, **by_axis) -> list:
+    """One placement per mesh dim: ``by_axis[name]`` where given, else
+    ``Replicate()``."""
+    _, _, Replicate, _ = _types()
+    return [by_axis.get(n, Replicate()) for n in mesh.mesh_dim_names]
+
+
+def fsdp_split(w) -> bool:
+    """Whether the DTensor ``w`` is split over a "data" axis of size > 1
+    (an FSDP-laid-out weight), so a weight-stationary product applies."""
+    _, _, _, Shard = _types()
+    if not is_dtensor(w) or axis_size(w.device_mesh, DATA_AXIS) < 2:
+        return False
+    names = tuple(w.device_mesh.mesh_dim_names)
+    return isinstance(w.placements[names.index(DATA_AXIS)], Shard)
+
+
+def stationary(w, model_dim: Optional[int] = None) -> torch.Tensor:
+    """The weight ``w``'s local shard as it is laid out on "data" (its
+    FSDP split kept: nothing is gathered there), split on "model" along
+    ``model_dim`` (None: replicated) and replicated on any other axis."""
+    _, _, Replicate, Shard = _types()
+    names = tuple(w.device_mesh.mesh_dim_names)
+    model = Shard(model_dim) if model_dim is not None else Replicate()
+    want = _on_axes(w.device_mesh, **{DATA_AXIS: w.placements[
+        names.index(DATA_AXIS)], MODEL_AXIS: model})
+    if tuple(w.placements) != tuple(want):
+        w = w.redistribute(w.device_mesh, want)
+    return _wait(w.to_local())
+
+
+def data_chunk(t: torch.Tensor, mesh, dim: int = -1) -> torch.Tensor:
+    """This rank's chunk of ``t`` along ``dim`` by its "data" coordinate
+    (the chunk a ``Shard(dim)`` over "data" holds)."""
+    n = axis_size(mesh, DATA_AXIS)
+    size = t.shape[dim] // n
+    return t.narrow(dim, int(mesh.get_local_rank(DATA_AXIS)) * size, size)
+
+
+def axis_sum(t: torch.Tensor, mesh, axis: str = DATA_AXIS) -> torch.Tensor:
+    """Each rank's partial sum ``t`` summed over the mesh axis ``axis`` (an
+    all-reduce), on every rank."""
+    DTensor, Partial, Replicate, _ = _types()
+    d = DTensor.from_local(t, mesh, _on_axes(mesh, **{axis: Partial()}),
+                           run_check=False)
+    return _wait(d.redistribute(mesh, _on_axes(mesh)).to_local())
+
+
+def axis_gather(t: torch.Tensor, mesh, axis: str, dim: int) -> torch.Tensor:
+    """The local shards ``t`` of a tensor split along ``dim`` over the mesh
+    axis ``axis``, gathered whole (an all-gather), on every rank."""
+    DTensor, _, _, Shard = _types()
+    d = DTensor.from_local(t, mesh, _on_axes(mesh, **{axis: Shard(dim)}),
+                           run_check=False)
+    return _wait(d.redistribute(mesh, _on_axes(mesh)).to_local())
+
+
+def embed_sharded(t: torch.Tensor, mesh, partial_model: bool = False):
+    """A local slice of an activation's embed (last) dim as the DTensor
+    split there over "data", a partial sum over "model" when
+    ``partial_model`` (else replicated there)."""
+    DTensor, Partial, _, Shard = _types()
+    by_axis = {DATA_AXIS: Shard(t.dim() - 1)}
+    if partial_model:
+        by_axis[MODEL_AXIS] = Partial()
+    return DTensor.from_local(t, mesh, _on_axes(mesh, **by_axis),
+                              run_check=False)

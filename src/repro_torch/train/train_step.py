@@ -27,28 +27,54 @@ masters keep the parameters' placements, and :func:`opt_update` runs on
 the local shards; the step returns everything in the placements it was
 given.
 
-Not ported, by decision: the env-gated ``REPRO_PERF_BF16_ACCUM`` and
-``REPRO_PERF_DEFER_GRAD_SYNC`` paths, which steer XLA's gradient sync over
-a TPU mesh's data axes, and the ``unroll`` argument of the scans.
+The JAX package's two ``REPRO_PERF_*`` flags of the step
+(:mod:`repro_torch.flags`):
+
+* ``BF16_ACCUM``, read when the step is made: the accumulators in
+  bfloat16 whatever ``accum_dtype`` says.
+* ``DEFER_GRAD_SYNC``, read at each call, on a mesh with microbatches:
+  the parameters are gathered on the data axes once before the
+  microbatch loop (:func:`_gathered_on_data`), so each microbatch's
+  gradients arrive unreduced there (partial sums of the rank's batch
+  shard, DTensor ``Partial``) and are added up locally; after the loop
+  each is reduced once into its parameter's layout (a reduce-scatter of
+  an FSDP-split leaf) instead of once per microbatch.
+
+Not ported: the ``unroll`` argument of the scans (an XLA cost-analysis
+tool; the loops here are Python loops).
 """
 
 from __future__ import annotations
 
+import contextlib
 from typing import Any, Dict
 
 import torch
 
+from .. import flags
 from ..models import forward, lm_loss, logits_from_hidden
 from ..models.config import ModelConfig
 from ..models.schema import tree_leaves, tree_map, tree_unflatten
 from ..sharding import ctx as shard_ctx
-from ..sharding.local import layout_batch, mesh_of
+from ..sharding.local import (DP_AXES, layout_batch, mesh_of,
+                              unreduced_data_grads, wait_local)
 from .optimizer import OptConfig, opt_update
 
 
 def _leaf(p: torch.Tensor) -> torch.Tensor:
     """An autograd leaf sharing ``p``'s storage."""
     return p.detach().requires_grad_()
+
+
+def _gathered_on_data(p):
+    """The DTensor parameter ``p`` replicated on the data axes ("pod",
+    "data"), laid out as before on the others."""
+    from torch.distributed.tensor import Replicate
+    names = p.device_mesh.mesh_dim_names
+    want = [Replicate() if n in DP_AXES else pl
+            for n, pl in zip(names, p.placements)]
+    return p.redistribute(p.device_mesh, want) if want != list(
+        p.placements) else p
 
 
 def make_train_step(cfg: ModelConfig, opt_cfg: OptConfig,
@@ -77,6 +103,8 @@ def make_train_step(cfg: ModelConfig, opt_cfg: OptConfig,
             "the flash kernel has no backward pass; train with "
             "use_flash=False (the plain attention path)")
     moe = collect_moe and cfg.moe_experts > 0
+    if flags.enabled("BF16_ACCUM"):
+        accum_dtype = torch.bfloat16     # the JAX package's flag
 
     def grads_of(params, mb, placements):
         """The microbatch's loss, loads and gradients: one per leaf, or, for
@@ -117,19 +145,32 @@ def make_train_step(cfg: ModelConfig, opt_cfg: OptConfig,
             loss, loads = None, None
             whole = {k: shard_ctx.constrain(v, *([None] * v.dim()))
                      for k, v in batch.items()}
+            defer = (flags.enabled("DEFER_GRAD_SYNC")
+                     and mesh_of(params["embed"]["tokens"]) is not None)
+            live = tree_map(_gathered_on_data, params) if defer else params
+            unreduced = None
             for i in range(microbatches):
                 mb = {k: shard_ctx.constrain(v[i * size:(i + 1) * size], "dp",
                                              *([None] * (v.dim() - 1)))
                       for k, v in whole.items()}
-                mb_loss, mb_loads, mb_grads = grads_of(params, mb, placements)
-                for acc, g in zip(grads, mb_grads):
-                    for a, part in (zip(acc, g) if isinstance(g, tuple)
-                                    else ((acc, g),)):
-                        a.add_(part)
+                with (unreduced_data_grads() if defer
+                      else contextlib.nullcontext()):
+                    mb_loss, mb_loads, mb_grads = grads_of(live, mb,
+                                                           placements)
+                if defer:
+                    unreduced = _add_unreduced(unreduced, mb_grads,
+                                               accum_dtype)
+                else:
+                    for acc, g in zip(grads, mb_grads):
+                        for a, part in (zip(acc, g) if isinstance(g, tuple)
+                                        else ((acc, g),)):
+                            a.add_(part)
                 del mb_grads
                 loss = mb_loss if loss is None else loss + mb_loss
                 if mb_loads is not None:
                     loads = mb_loads if loads is None else loads + mb_loads
+            if defer:
+                _reduce_into(grads, unreduced)
             for acc in grads:
                 acc.div_(microbatches)
             loss = loss / microbatches
@@ -141,6 +182,40 @@ def make_train_step(cfg: ModelConfig, opt_cfg: OptConfig,
         return params, opt_state, metrics
 
     return train_step
+
+
+def _add_unreduced(acc, grads, dtype):
+    """Add one microbatch's DTensor gradients into ``acc``: per leaf, per
+    gradient (the leaf's, or each group slice's of a stacked leaf) its
+    placements, shape, stride and local sum so far in ``dtype`` (``acc``
+    None: the first microbatch, zeros to start). No collective: a
+    ``Partial`` gradient stays a local partial sum."""
+    if acc is None:
+        acc = [[(x.placements, x.shape, x.stride(),
+                 torch.zeros_like(x.to_local(), dtype=dtype))
+                for x in (g if isinstance(g, tuple) else (g,))]
+               for g in grads]
+    for leaf, g in zip(acc, grads):
+        for (_, _, _, local), x in zip(
+                leaf, g if isinstance(g, tuple) else (g,)):
+            local.add_(wait_local(x))
+    return acc
+
+
+def _reduce_into(grads, acc) -> None:
+    """Reduce each gradient :func:`_add_unreduced` accumulated, once, into
+    its parameter's layout, and add it into ``grads`` (zero accumulators in
+    the parameters' placements; a stacked leaf's a group slice at a
+    time)."""
+    from torch.distributed.tensor import DTensor
+    for dst, leaf in zip(grads, acc):
+        stacked = dst.dim() > len(leaf[0][1])
+        for d, (placements, shape, stride, local) in zip(
+                dst.unbind(0) if stacked else (dst,), leaf):
+            total = DTensor.from_local(local, d.device_mesh, placements,
+                                       run_check=False, shape=shape,
+                                       stride=stride)
+            d.add_(total.redistribute(d.device_mesh, d.placements))
 
 
 def make_serve_step(cfg: ModelConfig, use_flash: bool = False):

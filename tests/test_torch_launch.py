@@ -15,10 +15,20 @@
   carries the FLOP ratio to ``model_flops`` and the bytes per device, and
   ``roofline.analyze`` reads it. The bytes per device are held against a
   real mesh's shards in ``tests/test_torch_mesh.py``.
+* collectives and memory (``dryrun.trace_mesh``, a fake process group in
+  a subprocess): a small config's weight all-gathers on a fake (2, 2)
+  mesh equal a hand count from the schema's shardings; the collective
+  and memory figures extrapolate exactly across the probes; the report
+  carries them under the JAX family names, the roofline charges them at
+  the H100's NVLink rate, and a failed trace reads as an error, not as
+  zeros; the launchers' ``--mode lower`` on granite-moe-3b-a800m's full
+  config with and without their flags.
 """
 
 import json
+import math
 import types
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -29,10 +39,15 @@ from repro.launch import roofline as jax_roofline
 from repro.launch import specs as jax_specs
 from repro.models.config import SHAPES as JAX_SHAPES
 from repro.sharding import rules as jax_rules
+from repro_torch import flags as launcher_flags
 from repro_torch.configs import ARCHS, get_config, smoke_config
 from repro_torch.launch import dryrun, roofline, specs
+from repro_torch.launch import serve as launch_serve
+from repro_torch.launch import train as launch_train
+from repro_torch.models import model_schema
 from repro_torch.models.config import SHAPES, ShapeConfig
 from repro_torch.models.schema import tree_leaves
+from repro_torch.sharding import rules
 
 CELLS = [(a, s) for a in ARCHS for s in SHAPES]
 MESH = types.SimpleNamespace(axis_names=("data", "model"),
@@ -129,16 +144,151 @@ def test_lower_cell_extrapolates_the_probes_exactly(arch, kind, tmp_path):
 
 
 def test_roofline_bounds_use_the_h100():
-    """The bounds divide by the H100's dense bf16 rate and HBM bandwidth
-    (not the TPU v5e's), and a skipped cell reads as a skip."""
+    """The bounds divide by the H100's dense bf16 rate, HBM bandwidth and
+    NVLink rate each way (not the TPU v5e's), the link bytes count an
+    all-reduce twice, the peak comes from the report's memory, and a
+    skipped cell reads as a skip."""
     rep = {"arch": "granite_8b", "shape": "prefill_32k", "mesh": "single",
            "devices": 256, "flops": 2.56e17, "skipped": False,
            "bytes_per_device": {"total": 3.35e9},
+           "collective_bytes": {"all-reduce": 450e6, "all-gather": 450e6},
+           "memory": {"peak_bytes": 8e10},
            "replicated_fallbacks": {}}
     r = roofline.analyze(rep)
     assert r.compute_s == pytest.approx(1e15 / 989e12)
     assert r.memory_s == pytest.approx(1e-3)
+    assert r.collective_s == pytest.approx(3e-3)
+    assert roofline.LINK_BW == 450e9
+    assert r.peak_hbm_gb == pytest.approx(80.0)
     assert r.dominant == "compute" and r.bound_frac == 1.0
     assert "H100" in r.card and "700 W" in r.card
     assert roofline.analyze({"skipped": True}) is None
     assert dryrun.lower_cell("granite_8b", "long_500k")["skipped"]
+
+
+# ------------------------------------------------ collectives and memory --
+FAKE_2x2 = ((2, 2), ("data", "model"))
+JAX_FAMILIES = {"all-gather", "all-reduce", "reduce-scatter", "all-to-all",
+                "collective-permute"}
+
+
+def test_dry_run_weight_all_gathers_match_the_hand_count():
+    """gemma3's smoke config on a fake (2, 2) mesh, a prefill step: every
+    layer weight that "data" splits is all-gathered there once, split on
+    "model" as the schema splits it (its heads and MLP columns divide the
+    axis), and no activation is gathered. So the all-gather bytes one
+    superblock adds (the 3-group probe less the 2-group one) are the sum
+    over one superblock's layer weights split on "data" of their bytes,
+    over 2 where "model" splits them too."""
+    cfg, shape = smoke_config("gemma3_12b"), SMALL["prefill"]
+    probes = dryrun.trace_mesh(cfg, shape, FAKE_2x2)
+    delta = (probes[3]["collective_bytes"]["all-gather"]
+             - probes[2]["collective_bytes"]["all-gather"])
+    view = types.SimpleNamespace(axis_names=FAKE_2x2[1],
+                                 shape=dict(zip(FAKE_2x2[1], FAKE_2x2[0])))
+    sch = model_schema(cfg)
+    n_groups = cfg.n_layers // cfg.pattern_period
+    want = 0
+    for s, spec in zip(tree_leaves(sch["groups"]), tree_leaves(
+            rules.param_pspecs(sch["groups"], view))):
+        if "data" in spec:
+            size = math.prod(s.shape) // n_groups * s.dtype.itemsize
+            want += size // (2 if "model" in spec else 1)
+    assert want > 0 and delta == want
+
+
+@pytest.mark.parametrize("arch,kind,microbatches", [
+    ("granite_moe_3b_a800m", "train", 2), ("gemma3_12b", "train", 2),
+    ("qwen2_7b", "train", 2), ("whisper_large_v3", "train", 1),
+    ("jamba_1_5_large_398b", "train", 1), ("gemma3_12b", "decode", 1),
+    ("dbrx_132b", "decode", 1), ("internvl2_1b", "prefill", 1)])
+def test_dry_run_collectives_and_memory_extrapolate_exactly(
+        arch, kind, microbatches):
+    """At 4 superblocks each collective family's bytes, the argument and
+    output bytes and the forward-and-backward phase's peak equal the 2-
+    and 3-superblock probes' extrapolation, so a full depth's are exact;
+    the peak holds the arguments. The optimizer phase's peak (a train
+    cell's ``update``) adds its largest leaf's transient, which may pass
+    from one leaf to another as depth grows, so it is extrapolated but
+    not held exact here (the module docstring)."""
+    cfg = smoke_config(arch)
+    probes = dryrun.trace_mesh(cfg, SMALL[kind], FAKE_2x2,
+                               microbatches=microbatches, groups=(2, 3, 4))
+    want = dryrun._extrapolate(probes[2], probes[3], 4)
+    assert want["collective_bytes"] == probes[4]["collective_bytes"]
+    for key in ("argument_bytes", "output_bytes"):
+        assert want["memory"][key] == probes[4]["memory"][key]
+    assert want["memory"]["peak_by_phase"]["step"] == \
+        probes[4]["memory"]["peak_by_phase"]["step"]
+    assert set(probes[4]["memory"]["peak_by_phase"]) == (
+        {"step", "update"} if kind == "train" else {"step"})
+    for p in probes.values():
+        assert set(p["collective_bytes"]) <= JAX_FAMILIES
+        assert p["collective_bytes"]["all-gather"] > 0
+        mem = dryrun._memory(p["memory"])
+        assert mem["peak_bytes"] >= mem["argument_bytes"] > 0
+        assert mem["peak_bytes"] == max(mem["peak_by_phase"].values())
+        assert mem["temp_bytes"] == mem["peak_bytes"] - mem["argument_bytes"]
+        assert mem["output_bytes"] > 0
+
+
+def test_lower_cell_reports_collectives_and_memory():
+    """The report's collective bytes (JAX family names) and memory per
+    device on the named production mesh, and the roofline's collective
+    term at the H100's NVLink rate."""
+    cfg = smoke_config("granite_moe_3b_a800m")
+    rep = dryrun.lower_cell("granite_moe_3b_a800m", SMALL["train"],
+                            "single", cfg=cfg, microbatches=2)
+    assert "error" not in rep, rep.get("error")
+    assert rep["microbatches"] == 2
+    assert set(rep["collective_bytes"]) <= JAX_FAMILIES
+    # the smoke widths do not divide 16: the gradients are all-reduced
+    assert rep["collective_bytes"]["all-reduce"] > 0
+    mem = rep["memory"]
+    assert {"argument_bytes", "output_bytes", "temp_bytes",
+            "peak_bytes"} <= set(mem)
+    assert mem["peak_bytes"] >= mem["argument_bytes"] > 0
+    # the roofline reads the cell's shape by name: the smoke cell as
+    # train_4k (the terms read the report's own figures)
+    r = roofline.analyze({**rep, "shape": "train_4k"})
+    assert r.collective_s == pytest.approx(roofline.link_bytes(
+        rep["collective_bytes"]) / 450e9) and r.collective_s > 0
+    assert r.peak_hbm_gb == mem["peak_bytes"] / 1e9
+    assert "collective s" in roofline.table(results_dir=Path("/nonexistent"))
+
+
+def test_a_failed_trace_reads_as_an_error_not_zeros(monkeypatch):
+    def fail(*a, **k):
+        raise RuntimeError("mesh trace failed (exit 1): boom")
+    monkeypatch.setattr(dryrun, "trace_mesh", fail)
+    rep = dryrun.lower_cell("granite_8b", SMALL["decode"], "single",
+                            cfg=smoke_config("granite_8b"))
+    assert "boom" in rep["error"]
+    assert "collective_bytes" not in rep and "memory" not in rep
+    assert roofline.analyze(rep) is None
+
+
+@pytest.mark.parametrize("launcher,shape", [("train", "train_4k"),
+                                            ("serve", "decode_32k")])
+def test_launchers_dry_run_granite_moe_with_and_without_flags(
+        launcher, shape, capsys):
+    """granite-moe-3b-a800m's full config on the single production mesh,
+    ``--mode lower`` with the launcher's flags and with
+    ``--no-perf-flags``: both reports hold collective bytes per family and
+    memory, the flags they ran under, and no error (``PERF.md`` records the
+    figures; no direction is asserted)."""
+    module = launch_train if launcher == "train" else launch_serve
+    reps = []
+    for extra in ([], ["--no-perf-flags"]):
+        module.main(["--arch", "granite-moe-3b-a800m", "--mode", "lower",
+                     "--shape", shape] + extra)
+        reps.append(json.loads(capsys.readouterr().out))
+    on, off = reps
+    assert on["perf_flags"] == sorted(
+        launcher_flags.launcher_defaults(launcher, "granite_moe_3b_a800m"))
+    assert off["perf_flags"] == []
+    for rep in reps:
+        assert "error" not in rep, rep.get("error")
+        assert set(rep["collective_bytes"]) <= JAX_FAMILIES
+        assert rep["memory"]["peak_bytes"] > rep["memory"]["argument_bytes"]
+        assert rep["microbatches"] == (8 if launcher == "train" else None)

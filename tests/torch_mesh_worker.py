@@ -13,14 +13,30 @@ the port's unsharded step and the same step on DTensors under the mesh
   of 2 microbatches: its loss, the updated float32 masters, and the
   placements of every parameter and optimizer-state leaf before and after.
 
+With the ``REPRO_PERF_*`` flags (``tests/test_torch_perf_flags.py``),
+each rank sets them in its own environment for the case:
+
+* flags_serve: the serve steps with the serve launcher's flags (and
+  ``ATTN_SHARD``) against the unsharded port with the same flags and the
+  mesh's dispatch-group count (``moe.fixed_groups``); the token count of
+  every routing, and, for one decode step with and without
+  ``DECODE_WS``, the size of every all-gather over "data";
+* flags_train: the train step with ``MOE_GROUPED``, ``ATTN_SHARD`` and
+  ``DEFER_GRAD_SYNC`` (then also ``BF16_ACCUM``) against the unsharded
+  port the same way, and ``CommDebugMode``'s collective counts of the step
+  at 1 and 2 microbatches with and without ``DEFER_GRAD_SYNC``.
+
 Every rank writes what it saw to ``mesh_rank<r>.pkl``; the test asserts
 each case's row.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import datetime
+import math
+import os
 import pickle
 import time
 from pathlib import Path
@@ -337,10 +353,228 @@ def bytes_case(arch: str, mesh, seed: int) -> dict:
             "cache": local(cache)}
 
 
+SERVE_FLAGS = ("MOE_GROUPED", "DECODE_WS", "ATTN_SHARD")
+TRAIN_FLAGS = ("MOE_GROUPED", "ATTN_SHARD", "DEFER_GRAD_SYNC")
+
+
+@contextlib.contextmanager
+def perf_env(names):
+    """This process's ``REPRO_PERF_*`` variables set to exactly ``names``
+    within the block, restored after it."""
+    from repro_torch import flags
+    saved = {n: os.environ.pop(f"REPRO_PERF_{n}", None) for n in flags.NAMES}
+    for n in names:
+        os.environ[f"REPRO_PERF_{n}"] = "1"
+    try:
+        yield
+    finally:
+        for n, v in saved.items():
+            os.environ.pop(f"REPRO_PERF_{n}", None)
+            if v is not None:
+                os.environ[f"REPRO_PERF_{n}"] = v
+
+
+def _dp(mesh) -> int:
+    return math.prod(int(mesh.size(i)) for i, a in
+                     enumerate(mesh.mesh_dim_names) if a in ("pod", "data"))
+
+
+def _token_recorder(moe_mod, log: list):
+    orig = moe_mod._route
+
+    def route(router, cfg, xf, *args, **kw):
+        log.append(int(xf.shape[0]))
+        return orig(router, cfg, xf, *args, **kw)
+    return orig, route
+
+
+class _Gathers:
+    """Every all-gather issued within the block: the mesh axis it ran over,
+    its output size, whether the layer stack (``decoder_apply``) issued
+    it, and whether it gathered a weight (``Local.param``)."""
+
+    def __init__(self, mesh):
+        import traceback
+
+        from torch.utils._python_dispatch import TorchDispatchMode
+        axes = {mesh.get_group(a).group_name: a
+                for a in mesh.mesh_dim_names}
+        rows = self.rows = []
+
+        class Mode(TorchDispatchMode):
+            def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+                from torch.distributed.tensor import DTensor
+                if any(issubclass(t, DTensor) for t in types):
+                    return NotImplemented
+                out = func(*args, **(kwargs or {}))
+                if func._overloadpacket.__name__ == \
+                        "all_gather_into_tensor":
+                    stack = [(f.filename.rsplit("/", 1)[-1], f.name)
+                             for f in traceback.extract_stack()]
+                    rows.append((axes.get(args[2]), out.numel(),
+                                 ("transformer.py", "decoder_apply")
+                                 in stack,
+                                 ("local.py", "param") in stack))
+                return out
+        self.mode = Mode()
+
+
+def flags_serve_case(arch: str, mesh, seed: int) -> dict:
+    from repro_torch.configs import smoke_config
+    from repro_torch.models import init_cache, model_schema, schema
+    from repro_torch.models import moe as moe_mod
+    from repro_torch.models.schema import tree_leaves
+    from repro_torch.models.skewshield import placements_array
+    from repro_torch.launch.serve import moe_placers
+    from repro_torch.models.transformer import cache_schema, encode
+    from repro_torch.sharding import ctx, rules
+    from repro_torch.train.train_step import make_serve_step
+
+    cfg = smoke_config(arch)
+    sch = model_schema(cfg)
+    params = np_params(sch, seed)
+    b, t = SERVE["batch"], SERVE["prompt"]
+    batch = _inputs(cfg, b, t, seed + 1)
+    if "frames" in batch:
+        with torch.inference_mode():
+            batch = {"tokens": batch["tokens"],
+                     "encoder_out": encode(params, cfg, batch["frames"])}
+    g = torch.Generator().manual_seed(seed + 2)
+    decode = [torch.randint(0, cfg.vocab, (b, 1), generator=g)
+              for _ in range(SERVE["decode"])]
+    placements = None
+    if cfg.moe_experts:
+        perm = torch.randperm(cfg.moe_experts, generator=g)
+        placements = placements_array(moe_placers(cfg), "cpu")[:, perm]
+    prefix = cfg.prefix_len if "pixel_embeds" in batch else 0
+    max_seq = prefix + t + SERVE["decode"]
+    csch = cache_schema(cfg, b, max_seq)
+    pshard = rules.param_shardings(sch, mesh, fsdp=True)
+    dparams = schema.distribute(params, pshard)
+
+    def dcache():
+        return schema.distribute(_f32(init_cache(cfg, b, max_seq, "cpu")),
+                                 rules.cache_shardings(csch, mesh, b))
+
+    log: list = []
+    orig, route = _token_recorder(moe_mod, log)
+    moe_mod._route = route
+    try:
+        with perf_env(SERVE_FLAGS):
+            with moe_mod.fixed_groups(_dp(mesh)):
+                want = _serve_run(cfg, params,
+                                  _f32(init_cache(cfg, b, max_seq, "cpu")),
+                                  batch, placements, decode)
+            del log[:]
+            with ctx.use_mesh(mesh):
+                got = _serve_run(cfg, dparams, dcache(), batch, placements,
+                                 decode)
+        tokens = list(log)
+        # one decode step's all-gathers, with and without DECODE_WS
+        step = make_serve_step(cfg)
+        gathers = {}
+        for name, on in (("ws", SERVE_FLAGS),
+                         ("no_ws", ("MOE_GROUPED", "ATTN_SHARD"))):
+            with perf_env(on), ctx.use_mesh(mesh):
+                cache = dcache()
+                _, cache = step(dparams, cache, batch, 0, placements)
+                rec = _Gathers(mesh)
+                step_batch = {k: v for k, v in batch.items()
+                              if k == "encoder_out"}
+                with rec.mode:
+                    step(dparams, cache, {"tokens": decode[0],
+                                          **step_batch}, prefix + t,
+                         placements)
+            gathers[name] = rec.rows
+    finally:
+        moe_mod._route = orig
+    return {
+        "free": (want[0].numpy(), got[0].numpy()),
+        "logits": (want[1].numpy(), got[1].numpy()),
+        "cache": [(w.numpy(), g_.numpy()) for w, g_ in
+                  zip(tree_leaves(want[2]), tree_leaves(got[2]))],
+        "route_tokens": tokens, "n_tokens": b * t, "dp": _dp(mesh),
+        "gathers": gathers,
+    }
+
+
+def flags_train_case(arch: str, mesh, seed: int) -> dict:
+    from repro_torch.configs import smoke_config
+    from repro_torch.models import model_schema, schema
+    from repro_torch.models import moe as moe_mod
+    from repro_torch.models.schema import tree_leaves
+    from repro_torch.sharding import ctx, rules
+    from repro_torch.train import OptConfig, make_train_step, opt_init
+    from torch.distributed.tensor.debug import CommDebugMode
+
+    cfg = smoke_config(arch)
+    if cfg.n_layers // cfg.pattern_period > 1:
+        cfg = dataclasses.replace(cfg, n_layers=cfg.pattern_period)
+    sch = model_schema(cfg)
+    params = np_params(sch, seed, torch.float64)
+    b, t = TRAIN["batch"], TRAIN["seq"]
+    toks = _inputs(cfg, b, t + 1, seed + 1)["tokens"]
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    placements = None
+    if cfg.moe_experts:
+        g = torch.Generator().manual_seed(seed + 2)
+        placements = torch.stack([torch.randperm(cfg.moe_experts,
+                                                 generator=g)
+                                  for _ in range(cfg.n_layers)])
+    pshard = rules.param_shardings(sch, mesh, fsdp=True)
+    ocfg = OptConfig(lr=TRAIN["lr"], warmup_steps=0, total_steps=10)
+    rows = {}
+    log: list = []
+    orig, route = _token_recorder(moe_mod, log)
+    moe_mod._route = route
+    try:
+        for name, on in (("flags", TRAIN_FLAGS),
+                         ("bf16_accum", TRAIN_FLAGS + ("BF16_ACCUM",))):
+            with perf_env(on):
+                step = make_train_step(cfg, ocfg,
+                                       microbatches=TRAIN["microbatches"])
+                with moe_mod.fixed_groups(_dp(mesh)):
+                    _, wstate, wm = step(
+                        {k: v for k, v in schema.tree_map(
+                            lambda a: a.clone(), params).items()},
+                        opt_init(params), batch, placements)
+                del log[:]
+                dparams = schema.distribute(params, pshard)
+                with ctx.use_mesh(mesh):
+                    _, gstate, gm = step(dparams, opt_init(dparams), batch,
+                                         placements)
+            rows[name] = {
+                "step_loss": (float(wm["loss"]), float(gm["loss"])),
+                "grad_norm": (float(wm["grad_norm"]),
+                              float(gm["grad_norm"])),
+                "masters": [(w.numpy(), g_.full_tensor().numpy())
+                            for w, g_ in zip(
+                                tree_leaves(wstate["master"]),
+                                tree_leaves(gstate["master"]))],
+                "route_tokens": list(log)}
+    finally:
+        moe_mod._route = orig
+    counts = {}
+    for defer in (True, False):
+        for mb in (1, 2):
+            on = TRAIN_FLAGS if defer else ("MOE_GROUPED", "ATTN_SHARD")
+            with perf_env(on):
+                step = make_train_step(cfg, ocfg, microbatches=mb)
+                dparams = schema.distribute(params, pshard)
+                comm = CommDebugMode()
+                with ctx.use_mesh(mesh), comm:
+                    step(dparams, opt_init(dparams), batch, placements)
+            counts[(defer, mb)] = {str(k): v for k, v in
+                                   comm.get_comm_counts().items()}
+    return {**rows, "lr": TRAIN["lr"], "counts": counts,
+            "n_tokens": b * t // TRAIN["microbatches"], "dp": _dp(mesh)}
+
+
 def run_rank(rank: int, world: int, store: str, cases: list,
-             out: str) -> None:
+             out: str, shape=(2, 2)) -> None:
     """One of ``world`` ranks: every (kind, arch, seed) case of ``cases``
-    on the (2, 2) mesh; writes ``mesh_rank<rank>.pkl``."""
+    on the ``shape`` ("data", "model") mesh; writes
+    ``mesh_rank<rank>.pkl``."""
     from repro_torch.launch.mesh import make_mesh
 
     torch.set_num_threads(1)
@@ -348,7 +582,7 @@ def run_rank(rank: int, world: int, store: str, cases: list,
         "gloo", store=dist.FileStore(store, world), rank=rank,
         world_size=world, timeout=datetime.timedelta(seconds=120))
     try:
-        mesh = make_mesh((2, 2), ("data", "model"), device_type="cpu")
+        mesh = make_mesh(shape, ("data", "model"), device_type="cpu")
         res = {}
         for kind, arch, seed in cases:
             t0 = time.perf_counter()
@@ -357,6 +591,10 @@ def run_rank(rank: int, world: int, store: str, cases: list,
                     res[(kind, arch)] = launcher_case(arch, mesh, seed, out)
                 elif kind == "bytes":
                     res[(kind, arch)] = bytes_case(arch, mesh, seed)
+                elif kind == "flags_serve":
+                    res[(kind, arch)] = flags_serve_case(arch, mesh, seed)
+                elif kind == "flags_train":
+                    res[(kind, arch)] = flags_train_case(arch, mesh, seed)
                 else:
                     fn = serve_case if kind == "serve" else train_case
                     res[(kind, arch)] = fn(arch, mesh, seed)
@@ -370,6 +608,7 @@ def run_rank(rank: int, world: int, store: str, cases: list,
 
 
 def spawn(world: int, store: str, cases: list, out: str,
-          timeout_s: int = 150) -> None:
+          timeout_s: int = 150, shape=(2, 2)) -> None:
     from torch_sharded_worker import spawn_ranks
-    spawn_ranks(run_rank, world, (world, store, cases, out), timeout_s)
+    spawn_ranks(run_rank, world, (world, store, cases, out, shape),
+                timeout_s)
