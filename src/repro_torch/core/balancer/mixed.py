@@ -22,6 +22,7 @@ import time
 
 import numpy as np
 
+from ... import trace
 from . import metrics
 from .llfd import PlannerContext, Workspace, llfd
 from .phased import finish, table_key_indices
@@ -44,22 +45,24 @@ def _run_trial(base: Workspace) -> Workspace:
 def mixed(stats: KeyStats, assignment: Assignment,
           config: BalanceConfig) -> RebalanceResult:
     t0 = time.perf_counter()
-    psi = stats.gamma(config.beta)
-    ctx = PlannerContext(stats, assignment, config, psi=psi)
-    by_eta = _eta_order(stats, assignment)
-    n_a = len(by_eta)
-    base = Workspace(ctx=ctx)        # checkpoint: Phase-I state, grown in place
+    with trace.span("plan.prepare"):
+        psi = stats.gamma(config.beta)
+        ctx = PlannerContext(stats, assignment, config, psi=psi)
+        by_eta = _eta_order(stats, assignment)
+        n_a = len(by_eta)
+        base = Workspace(ctx=ctx)    # checkpoint: Phase-I state, grown in place
     cleaned = 0
     n = 0
     trials = 0
     while True:
-        if n > cleaned:              # Phase I delta: newly cleaned eta prefix
-            base.move_back_many(by_eta[cleaned:n])
-            cleaned = n
-        ws = _run_trial(base)
-        trials += 1
-        overuse = ws.working_table_size() - config.table_max
-        balance_ok = metrics.theta(ws.loads) <= config.theta_max + 1e-9
+        with trace.span("plan.trial"):
+            if n > cleaned:          # Phase I delta: newly cleaned eta prefix
+                base.move_back_many(by_eta[cleaned:n])
+                cleaned = n
+            ws = _run_trial(base)
+            trials += 1
+            overuse = ws.working_table_size() - config.table_max
+            balance_ok = metrics.theta(ws.loads) <= config.theta_max + 1e-9
         if (overuse <= 0 and balance_ok) or n >= n_a:
             break
         if overuse > 0:
@@ -68,8 +71,9 @@ def mixed(stats: KeyStats, assignment: Assignment,
             # Theorem-2 escalation: residual imbalance despite a fitting table
             # means stale entries pin keys badly — clean geometrically more.
             n = min(n_a, max(n + 1, 2 * max(n, 1)))
-    return finish(ws, assignment, config, t0, trials=float(trials),
-                  cleaned=float(n))
+    with trace.span("plan.finish"):
+        return finish(ws, assignment, config, t0, trials=float(trials),
+                      cleaned=float(n))
 
 
 def mixed_bf(stats: KeyStats, assignment: Assignment,

@@ -49,6 +49,7 @@ from typing import Dict
 import numpy as np
 import torch
 
+from .. import trace
 from . import _build
 from .ref import fmix32
 
@@ -177,7 +178,10 @@ class RoutingTable:
     def from_arrays(cls, table_keys: np.ndarray, table_dests: np.ndarray,
                     device) -> "RoutingTable":
         """:meth:`build`, then :meth:`to` ``device``."""
-        return cls.build(table_keys, table_dests).to(device)
+        with trace.span("route.build"):
+            table = cls.build(table_keys, table_dests)
+        with trace.span("route.upload"):
+            return table.to(device)
 
     def _build(self, tk: np.ndarray, td: np.ndarray) -> None:
         if tk.size and int(td.min()) < 0:

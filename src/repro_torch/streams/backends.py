@@ -62,6 +62,7 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple, Type
 import numpy as np
 import torch
 
+from .. import trace
 from ..core.balancer import Assignment, Hash32, KeyStats, metrics
 from ..kernels.key_stats import key_sums
 from .device import DeviceStateFleet, DeviceTaskView, _to_host
@@ -652,7 +653,8 @@ class DeviceBackend(StateBackend):
                      self._fleet.domain, stage.n_tasks)
         if self._dest_dense_cache is None \
                 or self._dest_dense_cache[0] != cache_key:
-            tk, td = assignment.table_arrays(stage._table_capacity)
+            with trace.span("route.build"):
+                tk, td = assignment.table_arrays(stage._table_capacity)
             dev = self._fleet.route_dense(
                 tk, td, assignment.n_dest, seed=self._device_seed,
                 use_kernel=(stage.substrate == "kernels"))
@@ -678,8 +680,9 @@ class DeviceBackend(StateBackend):
         buffered_count = 0
         pause_hi = stage.pause_window(n)
         if pause_hi is not None:
-            buffered_count = int(np.isin(keys[:pause_hi],
-                                         stage._pending_delta_arr).sum())
+            with trace.span("stage.pause"):
+                buffered_count = int(np.isin(keys[:pause_hi],
+                                             stage._pending_delta_arr).sum())
         stage.clear_pause()
 
         # ring-column bookkeeping (host mirror of the columnar _col_iv)
@@ -728,73 +731,53 @@ class DeviceBackend(StateBackend):
             step = fleet.interval_step(keys, tv, dest_dev, stage.n_tasks,
                                        keep, c, op.device_mode)
             dom = fleet.domain
-            counts_h = _to_host(step[0])[:dom]
-            win0_h = _to_host(step[1])[:dom]
-            slot0_h = _to_host(step[2])[:dom]
-            held_cnt = _to_host(step[3])[:dom]
-            held_sum = _to_host(step[4])[:dom]
+            with trace.span("stage.copy_back"):   # waits for the step
+                counts_h = _to_host(step[0])[:dom]
+                win0_h = _to_host(step[1])[:dom]
+                slot0_h = _to_host(step[2])[:dom]
+                held_cnt = _to_host(step[3])[:dom]
+                held_sum = _to_host(step[4])[:dom]
 
-            seen_mask = counts_h > 0
-            gk = np.nonzero(seen_mask)[0].astype(np.int64)
-            key_cost_g, out_vals, emit_sum = op.device_finish(
-                counts_h[seen_mask].astype(np.int64),
-                win0_h[seen_mask].astype(np.int64),
-                slot0_h[seen_mask].astype(np.int64))
-            if out_vals is not None:
-                stage.outputs.update(zip(gk.tolist(), out_vals.tolist()))
-            stage.emitted_sum += emit_sum
-            if op.device_unit_cost:
-                if step[5] is not None:           # max mode: device bincount
-                    task_cost = _to_host(step[5]).astype(np.float64)
-                else:                             # add mode: counts are host
-                    task_cost = np.bincount(dest_host[:dom],
-                                            weights=counts_h,
-                                            minlength=stage.n_tasks)
-            else:
-                task_cost = np.bincount(dest_host[gk], weights=key_cost_g,
-                                        minlength=stage.n_tasks)
-
-            # host mirrors: ownership labels (new keys adopt F(k); evicted
-            # keys clear) and the closed-form S(k, w) per key
-            alive = held_cnt > 0
-            t = fleet.task
-            t[:dom] = np.where(alive,
-                               np.where(t[:dom] >= 0, t[:dom],
-                                        dest_host[:dom].astype(np.int32)),
-                               -1)
-            fleet.mem[:dom] = (spec.slot_bytes * held_cnt
-                               + spec.bytes_per_unit * held_sum)
-            fleet.mem[:dom][~alive] = 0.0
-
-            # stat universe = seen ∪ held == alive: a seen key's current slot
-            # never expires at its own boundary, so seen ⊆ held-after
-            uni = np.nonzero(alive)[0].astype(np.int64)
-            if uni.size:
-                cost = np.zeros(uni.size, dtype=np.float64)
-                cost[np.searchsorted(uni, gk)] = key_cost_g
-                if stage.controller.stats_mode == "sketch":
-                    # one fold with every channel: the step already
-                    # aggregated per key, so this is the same multiset the
-                    # host backends stream in (see HostStoreBackend)
-                    stage.controller.ingest(
-                        uni, cost, mem=fleet.mem[uni],
-                        freq=counts_h[alive].astype(np.float64))
-                    stats = SKETCH_PENDING
-                else:
-                    stats = KeyStats(keys=uni,
-                                     cost=cost,
-                                     mem=fleet.mem[uni].copy(),
-                                     freq=counts_h[alive].astype(np.float64))
+            with trace.span("stage.seen"):    # the closed forms' inputs
+                seen_mask = counts_h > 0
+                gk = np.nonzero(seen_mask)[0].astype(np.int64)
+                seen = (counts_h[seen_mask].astype(np.int64),
+                        win0_h[seen_mask].astype(np.int64),
+                        slot0_h[seen_mask].astype(np.int64))
+            key_cost_g, out_vals, emit_sum = op.device_finish(*seen)
+            with trace.span("stage.outputs"):
+                if out_vals is not None:
+                    stage.outputs.update(zip(gk.tolist(), out_vals.tolist()))
+                stage.emitted_sum += emit_sum
+            with trace.span("stage.mirrors"):
+                task_cost = self._task_cost(step[5], dest_host, counts_h, gk,
+                                            key_cost_g)
+                # host mirrors: ownership labels (new keys adopt F(k);
+                # evicted keys clear) and the closed-form S(k, w) per key
+                alive = held_cnt > 0
+                t = fleet.task
+                t[:dom] = np.where(alive,
+                                   np.where(t[:dom] >= 0, t[:dom],
+                                            dest_host[:dom].astype(np.int32)),
+                                   -1)
+                fleet.mem[:dom] = (spec.slot_bytes * held_cnt
+                                   + spec.bytes_per_unit * held_sum)
+                fleet.mem[:dom][~alive] = 0.0
+            with trace.span("stage.stats"):
+                stats = self._traffic_stats(alive, gk, key_cost_g, counts_h)
         else:
             if fleet.domain and expire.any():
-                held_cnt, held_sum = fleet.evict(keep)
-                dom = fleet.domain
-                alive = held_cnt[:dom] > 0
-                fleet.task[:dom] = np.where(alive, fleet.task[:dom], -1)
-                fleet.mem[:dom] = (spec.slot_bytes * held_cnt[:dom]
-                                   + spec.bytes_per_unit * held_sum[:dom])
-                fleet.mem[:dom][~alive] = 0.0
-            stats = self.collect_stats(None, None, None, None)
+                with trace.span("stage.copy_back"):
+                    held_cnt, held_sum = fleet.evict(keep)
+                with trace.span("stage.mirrors"):
+                    dom = fleet.domain
+                    alive = held_cnt[:dom] > 0
+                    fleet.task[:dom] = np.where(alive, fleet.task[:dom], -1)
+                    fleet.mem[:dom] = (spec.slot_bytes * held_cnt[:dom]
+                                       + spec.bytes_per_unit * held_sum[:dom])
+                    fleet.mem[:dom][~alive] = 0.0
+            with trace.span("stage.stats"):
+                stats = self.collect_stats(None, None, None, None)
 
         # fault seam: device state and host mirrors are mutated (and in
         # sketch mode the controller's sketch already ingested), no report
@@ -812,6 +795,38 @@ class DeviceBackend(StateBackend):
         if evals is None:
             return report, np.zeros(0, np.int64), np.zeros(0, np.float64)
         return report, keys.astype(np.int64, copy=False), evals
+
+    def _task_cost(self, task_counts, dest_host, counts_h, gk, key_cost_g):
+        """Per-task cost of a traffic interval."""
+        n_tasks = self.stage.n_tasks
+        if not self.stage.operator.device_unit_cost:
+            return np.bincount(dest_host[gk], weights=key_cost_g,
+                               minlength=n_tasks)
+        if task_counts is not None:           # max mode: device bincount
+            return _to_host(task_counts).astype(np.float64)
+        dom = self._fleet.domain              # add mode: counts are host
+        return np.bincount(dest_host[:dom], weights=counts_h,
+                           minlength=n_tasks)
+
+    def _traffic_stats(self, alive, gk, key_cost_g, counts_h):
+        """Step-1 stats of a traffic interval over the stat universe, seen
+        ∪ held == alive (a seen key's current slot never expires at its own
+        boundary, so seen ⊆ held-after); None when nothing is alive."""
+        uni = np.nonzero(alive)[0].astype(np.int64)
+        if not uni.size:
+            return None
+        fleet, controller = self._fleet, self.stage.controller
+        cost = np.zeros(uni.size, dtype=np.float64)
+        cost[np.searchsorted(uni, gk)] = key_cost_g
+        if controller.stats_mode == "sketch":
+            # one fold with every channel: the step already aggregated per
+            # key, so this is the same multiset the host backends stream in
+            # (see HostStoreBackend)
+            controller.ingest(uni, cost, mem=fleet.mem[uni],
+                              freq=counts_h[alive].astype(np.float64))
+            return SKETCH_PENDING
+        return KeyStats(keys=uni, cost=cost, mem=fleet.mem[uni].copy(),
+                        freq=counts_h[alive].astype(np.float64))
 
     def collect_stats(self, acc_keys, acc_cost, acc_freq,
                       held) -> Optional[KeyStats]:

@@ -45,6 +45,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from .. import trace
 from ..kernels.ref import fmix32
 from ..kernels.routing_lookup import RoutingTable, route_keys
 from .state import ColumnarPack, ColumnarSpec
@@ -63,7 +64,13 @@ def resolve_device(device) -> torch.device:
 
 
 def _to_host(t) -> np.ndarray:
-    return t if isinstance(t, np.ndarray) else t.cpu().numpy()
+    """A tensor's host copy, its bytes counted as ``d2h_bytes`` (on any
+    device: the CPU tests count what the card would copy); a host array as
+    it is."""
+    if isinstance(t, np.ndarray):
+        return t
+    trace.count("d2h_bytes", t.nbytes)
+    return t.cpu().numpy()
 
 
 def _evict(vals: torch.Tensor, pres: torch.Tensor, expired) -> None:
@@ -202,22 +209,26 @@ class DeviceStateFleet:
         expired = np.flatnonzero(keep_cols == 0)
         self._host_dirty = True
         if mode == "add":
-            counts = np.bincount(keys, minlength=self.domain + 1) \
-                .astype(np.int32)
-            out = _interval_step_add(
-                self.vals, self.pres,
-                torch.from_numpy(counts).to(self.device), col, expired)
+            with trace.span("stage.histogram"):
+                counts = np.bincount(keys, minlength=self.domain + 1) \
+                    .astype(np.int32)
+            with trace.span("stage.upload"):
+                counts_dev = torch.from_numpy(counts).to(self.device)
+            out = _interval_step_add(self.vals, self.pres, counts_dev, col,
+                                     expired)
             return (counts,) + out + (None,)
-        return _interval_step_max(
-            self.vals, self.pres, torch.from_numpy(keys).to(self.device),
-            torch.from_numpy(tuple_vals.astype(np.int32)).to(self.device),
-            dest_dense, col, expired, n_tasks)
+        with trace.span("stage.upload"):
+            keys_dev = torch.from_numpy(keys).to(self.device)
+            tvals_dev = torch.from_numpy(
+                tuple_vals.astype(np.int32)).to(self.device)
+        return _interval_step_max(self.vals, self.pres, keys_dev, tvals_dev,
+                                  dest_dense, col, expired, n_tasks)
 
     def evict(self, keep_cols: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
         held_cnt, held_sum = _evict_step(self.vals, self.pres,
                                          np.flatnonzero(keep_cols == 0))
         self._host_dirty = True
-        return held_cnt.cpu().numpy(), held_sum.cpu().numpy()
+        return _to_host(held_cnt), _to_host(held_sum)
 
     def route_dense(self, tkeys: np.ndarray, tdests: np.ndarray, n_dest: int,
                     seed: int, use_kernel: bool) -> torch.Tensor:
@@ -237,7 +248,7 @@ class DeviceStateFleet:
     def dest_host_dense(self, dev: torch.Tensor) -> np.ndarray:
         """Host copy of a ``route_dense`` table: ``(domain+1,)`` int64 with
         ``out[k] == F(k)``."""
-        return dev.cpu().numpy().astype(np.int64)
+        return _to_host(dev).astype(np.int64)
 
     # -- host snapshots (pack contract + introspection) -------------------------
     def host_state(self) -> Tuple[np.ndarray, np.ndarray]:

@@ -31,6 +31,18 @@ yet). ``None`` (the default) costs one attribute test per site.
 :mod:`repro_torch.streams.faults` installs its injector there and recovers
 by restore and replay (:class:`~repro_torch.streams.faults.ChaosRunner`).
 
+Tracing
+-------
+While a ``torch.profiler.profile`` records, each interval opens a
+:mod:`repro_torch.trace` record: the stage, its device backend, the routing
+table and the Mixed planner mark their host work as named ranges in the
+profiler's trace (``stage.*``, ``route.*``, ``plan.*``) and count the bytes
+they copy from the device to the host (``d2h_bytes``) and the planner's
+trials (``plan_trials``). ``IntervalReport.trace`` holds that record: each
+span's wall seconds and each count, for the interval. Without a profiler
+every report's ``trace`` is ``None`` and each span costs one test of the
+current record.
+
 Choice routers
 --------------
 With a choice router installed (``algorithm="pkg"``, ``"potc"`` or
@@ -85,6 +97,7 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from .. import trace
 from ..core.balancer import Assignment, Hash32, KeyStats, metrics
 from ..core.controller import RebalanceController
 from ..kernels.routing_lookup import RoutingTable, route_keys
@@ -110,6 +123,11 @@ class IntervalReport:
     plan_time_s: float
     buffered: int                # tuples held during Pause
     task_loads: np.ndarray
+    #: under the profiler, the interval's :class:`repro_torch.trace.Record`
+    #: (span seconds, counts), the controller's round included; else None.
+    #: It holds the plan this interval's round ran, where ``plan_time_s``
+    #: books the previous interval's
+    trace: Optional[trace.Record] = None
 
 
 class KeyedStage:
@@ -264,10 +282,14 @@ class KeyedStage:
                                 ) -> IntervalReport:
         """Array-native entry point: ``keys`` as int64 array, ``values`` as an
         aligned sequence (or None when the operator reads no payloads)."""
-        self._failpoint("deliver")
-        if not self.vectorized:
-            return self._process_interval_reference(keys, values)
-        return self.backend.process_interval(keys, values)
+        previous = trace.begin()
+        try:
+            self._failpoint("deliver")
+            if not self.vectorized:
+                return self._process_interval_reference(keys, values)
+            return self.backend.process_interval(keys, values)
+        finally:
+            trace.end(previous)
 
     def process_interval_emits(self, keys: np.ndarray,
                                values: Optional[Sequence[Any]] = None
@@ -277,11 +299,16 @@ class KeyedStage:
         ``(report, emit_keys, emit_values)``, ordered by source-tuple
         position (one tuple's fan-out emits stay adjacent, in emit order);
         every engine path produces this exact stream."""
-        self._failpoint("deliver")
-        if not self.vectorized:
-            return self._process_interval_reference(keys, values,
-                                                    collect_emits=True)
-        return self.backend.process_interval(keys, values, collect_emits=True)
+        previous = trace.begin()
+        try:
+            self._failpoint("deliver")
+            if not self.vectorized:
+                return self._process_interval_reference(keys, values,
+                                                        collect_emits=True)
+            return self.backend.process_interval(keys, values,
+                                                 collect_emits=True)
+        finally:
+            trace.end(previous)
 
     def _dest_batch(self, keys: np.ndarray) -> np.ndarray:
         """Destinations for a key batch — the strategy's per-tuple router
@@ -351,6 +378,10 @@ class KeyedStage:
                 ev = self.controller.on_interval(stats, interval=iv)
             if ev.result is not None:
                 self._plan_time_pending = ev.result.plan_time_s
+                trials = ev.result.meta.get("trials")
+                if trials is not None:
+                    trace.count("plan_trials", trials)
+        report.trace = trace.current()
         return report
 
     # -- reference per-tuple path (parity oracle; vectorized=False) ------------
