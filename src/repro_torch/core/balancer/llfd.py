@@ -24,6 +24,9 @@ Array representation
 --------------------
 Psi order is computed once per planner call as a global rank permutation
 (``PlannerContext.order`` / ``.rank`` — descending psi, ties by key index).
+Where the controller belongs to a stage on a CUDA card (:func:`card_orders`)
+and the head has at least :data:`CARD_ORDER_MIN_KEYS` keys, that one sort
+runs on the card (:func:`psi_ranks`); the order is the same.
 Per-destination membership is a sorted array of ranks plus a small append
 buffer merged lazily on scan, so Phase II disassociation, Adjust's E and the
 fallback shed are all cumsum-prefix selections instead of per-key Python
@@ -44,23 +47,78 @@ default (0.0) keeps every key exact.
 
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import heapq
 from typing import List, Optional
 
 import numpy as np
+import torch
 
+from ... import trace
 from . import metrics
 from .types import Assignment, BalanceConfig, KeyStats
 
 IN_CANDIDATES = -1
+
+#: the fewest psi entries a plan orders on the card, where it has one
+#: (:func:`card_orders`); fewer stay with numpy's sort. The crossover on an
+#: H100 80GB HBM3 host (``scripts/card_order_crossover.py``, medians of 15):
+#: at 4,096 entries the card took 0.157-0.223 ms against the host's
+#: 0.139-0.162 in two runs; from 8,192 on the card was faster at every size
+#: (0.328 against 0.445 ms there, 2.21 against 62.3 at 883,789)
+CARD_ORDER_MIN_KEYS = 8_192
+
+_card: contextvars.ContextVar[Optional[torch.device]] = \
+    contextvars.ContextVar("plan_card", default=None)
+
+
+@contextlib.contextmanager
+def card_orders(device: Optional[torch.device]):
+    """Plans made inside order psi on ``device`` (a CUDA device the stage
+    that owns the controller runs on), from :data:`CARD_ORDER_MIN_KEYS`
+    entries on; ``None`` keeps every order on the host."""
+    token = _card.set(device)
+    try:
+        yield
+    finally:
+        _card.reset(token)
+
+
+def psi_ranks(psi: np.ndarray, device: Optional[torch.device] = None
+              ) -> tuple[np.ndarray, np.ndarray]:
+    """Positions of ``psi`` by descending value, ties by position (exactly
+    ``np.argsort(-psi, kind="stable")``), and its inverse: each position's
+    place in that order.
+
+    With a ``device``, at least :data:`CARD_ORDER_MIN_KEYS` entries and every
+    entry finite, both come from a stable sort on the device (counted as
+    ``plan_card_orders``). Zeros are made +0.0 there first: a radix sort
+    puts -0.0 below +0.0, where a comparison ties them.
+    """
+    n = psi.size
+    if device is not None and n >= CARD_ORDER_MIN_KEYS:
+        t = torch.from_numpy(psi).to(device)
+        if bool(torch.isfinite(t).all()):
+            t = t.masked_fill(t == 0.0, 0.0)
+            order = torch.sort(t, descending=True, stable=True).indices
+            rank = torch.empty_like(order)
+            rank[order] = torch.arange(n, device=device)
+            trace.count("plan_card_orders", 1)
+            order, rank = torch.stack([order, rank]).cpu().numpy()
+            return order, rank
+    order = np.argsort(-psi, kind="stable")
+    rank = np.empty(n, dtype=np.int64)
+    rank[order] = np.arange(n, dtype=np.int64)
+    return order, rank
 
 
 class PlannerContext:
     """Immutable per-call precomputation shared by every Mixed trial.
 
     Building this once per planner call (instead of once per trial) hoists
-    the two O(K log A) ``Assignment`` lookups, the psi argsort and the
-    head/tail split out of the n-escalation loop.
+    the hash, the table's scatter into it, the psi order and the head/tail
+    split out of the n-escalation loop.
     """
 
     def __init__(self, stats: KeyStats, assignment: Assignment,
@@ -69,7 +127,8 @@ class PlannerContext:
         self.config = config
         self.n_dest = assignment.n_dest
         self.hash_dest = assignment.hash_router(stats.keys)      # h(k) per index
-        self.orig_dest = assignment.dest(stats.keys)             # F(k) per index
+        self.orig_dest = assignment.dest(stats.keys,             # F(k) per index
+                                         hashed=self.hash_dest)
         self.cost = stats.cost
         self.mem = stats.mem
         # psi: priority used for Phase II selection and Adjust's E (higher first)
@@ -93,10 +152,15 @@ class PlannerContext:
         # descending psi, ties by ascending key index (a stable argsort of
         # -psi breaks ties by position, which is exactly the oracle's
         # (-psi, index) sort key since `head` is ascending)
-        hpsi = self.psi[self.head]
-        self.order = self.head[np.argsort(-hpsi, kind="stable")]
-        self.rank = np.full(k, -1, dtype=np.int64)
-        self.rank[self.order] = np.arange(self.order.size, dtype=np.int64)
+        with trace.span("plan.order"):
+            card = _card.get()
+            if self.head.size == k:          # every key is head
+                self.order, self.rank = psi_ranks(self.psi, card)
+            else:
+                order, rank = psi_ranks(self.psi[self.head], card)
+                self.order = self.head[order]
+                self.rank = np.full(k, -1, dtype=np.int64)
+                self.rank[self.head] = rank
 
     @property
     def is_exact(self) -> bool:
@@ -242,10 +306,14 @@ class Workspace:
         # destination with ranks ascending inside each group, and the
         # permutation values *are* the member ranks. IN_CANDIDATES entries
         # sort first and fall outside the [0, n_dest) segment bounds.
+        # Below 2^15 tasks the int16 copy holds every entry, and numpy's
+        # stable sort radix-sorts it: the same permutation.
         dest_by_rank = self.assign[self.ctx.order]
-        perm = np.argsort(dest_by_rank, kind="stable")
-        seg_dest = dest_by_rank[perm]
-        starts = np.searchsorted(seg_dest, np.arange(self.ctx.n_dest + 1))
+        by_dest = (dest_by_rank.astype(np.int16)
+                   if self.ctx.n_dest < 1 << 15 else dest_by_rank)
+        perm = np.argsort(by_dest, kind="stable")
+        starts = np.searchsorted(by_dest[perm], np.arange(
+            self.ctx.n_dest + 1, dtype=by_dest.dtype))
         self._members = [perm[starts[d]:starts[d + 1]]
                          for d in range(self.ctx.n_dest)]
         self._extra = [[] for _ in range(self.ctx.n_dest)]

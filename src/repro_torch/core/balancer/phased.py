@@ -16,7 +16,8 @@ import numpy as np
 
 from . import metrics
 from .llfd import PlannerContext, Workspace, llfd
-from .types import Assignment, BalanceConfig, KeyStats, RebalanceResult
+from .types import (Assignment, BalanceConfig, KeyStats, RebalanceResult,
+                    find_sorted, strictly_ascending)
 
 
 def run_phases(stats: KeyStats, assignment: Assignment, config: BalanceConfig,
@@ -67,15 +68,17 @@ def finish(ws, assignment: Assignment, config: BalanceConfig,
 
 
 def table_key_indices(stats: KeyStats, assignment: Assignment) -> np.ndarray:
-    """Indices (into stats arrays) of keys that currently sit in the table A.
+    """Indices (into stats arrays) of keys that currently sit in the table A,
+    ascending.
 
-    Sorted-table binary search — O(K log A) instead of ``np.isin``'s
-    O((K+A) log (K+A)) — computed once per planner call.
+    On a strictly ascending universe the <= A table keys are searched in the
+    K keys; other universes search their K keys in the sorted table.
     """
-    if not assignment.table:
+    if not assignment.table or not stats.num_keys:
         return np.zeros((0,), dtype=np.int64)
-    tkeys = np.fromiter(assignment.table.keys(), dtype=np.int64,
-                        count=len(assignment.table))
-    tkeys.sort()
+    tkeys, _ = assignment.sorted_table()
+    if strictly_ascending(stats.keys):
+        pos, hit = find_sorted(stats.keys, tkeys)
+        return pos[hit]
     pos = np.clip(np.searchsorted(tkeys, stats.keys), 0, len(tkeys) - 1)
     return np.flatnonzero(tkeys[pos] == stats.keys)

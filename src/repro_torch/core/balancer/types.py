@@ -61,9 +61,21 @@ class KeyStats:
         return int(self.keys.shape[0])
 
     def gamma(self, beta: float) -> Array:
-        """Migration priority index gamma_i(k,w) = c(k)^beta / S(k,w) (Sec. III-B)."""
-        mem = np.where(self.mem <= 0.0, 1.0, self.mem)
-        return np.power(np.maximum(self.cost, 0.0), beta) / mem
+        """Migration priority index gamma_i(k,w) = c(k)^beta / S(k,w) (Sec. III-B).
+
+        For beta > 0 a key of cost <= 0 has gamma +0.0, so the power runs
+        only on the other keys (a NaN cost or memory still gives NaN); no
+        entry is -0.0.
+        """
+        if not beta > 0.0:
+            mem = np.where(self.mem <= 0.0, 1.0, self.mem)
+            return np.power(np.maximum(self.cost, 0.0), beta) / mem
+        live = np.flatnonzero(~(self.cost <= 0.0) | np.isnan(self.mem))
+        mem = self.mem[live]
+        out = np.zeros(self.cost.shape)
+        out[live] = (np.power(np.maximum(self.cost[live], 0.0), beta)
+                     / np.where(mem <= 0.0, 1.0, mem))
+        return out
 
 
 @dataclasses.dataclass
@@ -87,6 +99,22 @@ class BalanceConfig:
 
     def l_max(self, mean_load: float) -> float:
         return (1.0 + self.theta_max) * mean_load * (1.0 + self.rel_eps) + 1e-12
+
+
+def strictly_ascending(keys: Array) -> bool:
+    """Whether each key exceeds the one before; a short prefix is tried
+    first, so an unsorted batch costs no whole pass."""
+    head = keys[:64]
+    return (bool(np.all(head[1:] > head[:-1]))
+            and bool(np.all(keys[1:] > keys[:-1])))
+
+
+def find_sorted(keys: Array, targets: Array) -> tuple[Array, Array]:
+    """Where each of ``targets`` sits in the ascending, non-empty ``keys``:
+    (positions, clipped to the last, and whether the key there is the
+    target)."""
+    pos = np.minimum(np.searchsorted(keys, targets), keys.size - 1)
+    return pos, keys[pos] == targets
 
 
 class HashRouter:
@@ -116,20 +144,36 @@ class Assignment:
     def table_size(self) -> int:
         return len(self.table)
 
-    def dest(self, keys: Array) -> Array:
-        """Vectorized F(k) for an array of key ids."""
+    def dest(self, keys: Array, hashed: Optional[Array] = None) -> Array:
+        """Vectorized F(k) for an array of key ids.
+
+        ``hashed`` is ``hash_router(keys)`` where the caller has it already.
+        Strictly ascending keys (a stats universe) take the table's entries
+        written into the hash at their positions, found by searching the
+        <= A table keys in the K keys; other keys search the sorted table.
+        """
         keys = np.asarray(keys, dtype=np.int64)
-        out = self.hash_router(keys)
-        if self.table:
-            tkeys = np.fromiter(self.table.keys(), dtype=np.int64, count=len(self.table))
-            tdest = np.fromiter(self.table.values(), dtype=np.int64, count=len(self.table))
-            order = np.argsort(tkeys, kind="stable")
-            tkeys, tdest = tkeys[order], tdest[order]
-            pos = np.searchsorted(tkeys, keys)
-            pos = np.clip(pos, 0, len(tkeys) - 1)
-            hit = tkeys[pos] == keys
-            out = np.where(hit, tdest[pos], out)
-        return out.astype(np.int64)
+        out = self.hash_router(keys) if hashed is None else hashed
+        out = out.astype(np.int64)
+        if not self.table or not keys.size:
+            return out
+        tkeys, tdest = self.sorted_table()
+        if strictly_ascending(keys):
+            pos, hit = find_sorted(keys, tkeys)
+            out[pos[hit]] = tdest[hit]
+            return out
+        pos = np.searchsorted(tkeys, keys)
+        pos = np.clip(pos, 0, len(tkeys) - 1)
+        hit = tkeys[pos] == keys
+        return np.where(hit, tdest[pos], out)
+
+    def sorted_table(self) -> tuple[Array, Array]:
+        """The table's (keys, dests), int64, by ascending key."""
+        n = len(self.table)
+        tkeys = np.fromiter(self.table.keys(), dtype=np.int64, count=n)
+        tdest = np.fromiter(self.table.values(), dtype=np.int64, count=n)
+        order = np.argsort(tkeys, kind="stable")
+        return tkeys[order], tdest[order]
 
     def dest_one(self, key: int) -> int:
         if key in self.table:

@@ -21,6 +21,7 @@ import numpy as np
 
 from .balancer import (Assignment, BalanceConfig, KeyStats, RebalanceResult,
                        metrics, resolve_strategy)
+from .balancer.llfd import card_orders
 from .balancer.sketch import SketchConfig, SketchStats
 
 
@@ -73,6 +74,10 @@ class RebalanceController:
         self.assignment = assignment
         self.config = config
         self.executor = executor
+        #: the CUDA device of the stage that owns this controller, which
+        #: sets it: plans over large key universes order psi there
+        #: (``balancer.llfd.card_orders``); None orders on the host
+        self.plan_device = None
         self.use_algorithm(algorithm)
         self.history: List[ControllerEvent] = []
         self._interval = 0
@@ -191,7 +196,8 @@ class RebalanceController:
             ev = ControllerEvent(self._interval, False, th)
             self.history.append(ev)
             return ev
-        result = self.strategy.plan(stats, self.assignment, self.config)
+        with card_orders(self.plan_device):
+            result = self.strategy.plan(stats, self.assignment, self.config)
         # Pause/migrate/Resume: the executor moves state for Delta(F,F') only
         if self.executor is not None and len(result.moved_keys):
             self.executor(result.moved_keys, self.assignment, result.assignment)

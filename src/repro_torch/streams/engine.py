@@ -224,6 +224,9 @@ class KeyedStage:
         self.stores = [self.backend.new_store() for _ in range(self.n_tasks)]
         # wire the migration executor (paper steps 5-6)
         self.controller.executor = self._execute_migration
+        # the plans' psi order runs on the stage's card, where it has one
+        self.controller.plan_device = (self.device
+                                       if self.device.type == "cuda" else None)
 
     def _init_kernels(self) -> None:
         router = self.controller.assignment.hash_router

@@ -7,7 +7,9 @@ reports and in the profiler's events, counts the bytes it copies back
 (four int32 ring outputs over the domain a traffic interval, the dense
 F(k) table a table change, two an eviction-only interval) and the
 planner's trials, and computes exactly what it computes untraced. An
-interval that raises at a crash site leaves no record current.
+interval that raises at a crash site leaves no record current. Plans whose
+psi order ran on a device book ``plan_card_orders``; the one
+``cuda``-marked test runs the stage on the card and skips without one.
 
 No JAX here: only the port's stage, fixed seeds, ``device="cpu"``.
 """
@@ -21,23 +23,24 @@ import torch
 from repro_torch import (Assignment, BalanceConfig, Hash32, KeyedStage,
                          RebalanceController, WordCount)
 from repro_torch import trace
+from repro_torch.core.balancer import llfd
 
 SPANS = ("stage.pause", "stage.histogram", "stage.upload", "stage.copy_back",
          "stage.seen", "stage.outputs", "stage.mirrors", "stage.stats",
          "route.build", "route.upload", "plan.prepare", "plan.trial",
-         "plan.finish")
+         "plan.finish", "plan.order")
 KEYS = 3000
 DOMAIN = 4096                       # the power of two above KEYS
 
 
-def _stage():
+def _stage(device="cpu"):
     """A stage whose small table makes Mixed run several trials."""
     controller = RebalanceController(
         Assignment(Hash32(5, seed=3)),
         BalanceConfig(theta_max=0.05, table_max=10, window=3))
     return KeyedStage(WordCount(), controller, window=3,
                       state_backend="device", substrate="kernels",
-                      device="cpu")
+                      device=device)
 
 
 def _traffic(n=8, seed=11):
@@ -121,6 +124,62 @@ def test_plan_trials_are_the_planners_own():
         assert r.trace.counts.get("plan_trials", 0) == \
             planned.get(r.interval, 0)
         assert ("plan.trial" in r.trace.spans) == (r.interval in planned)
+
+
+def _card_orders_per_plan(stage):
+    """Each traced report's ``plan_card_orders``, and whether its interval
+    planned."""
+    with _profiled():
+        reports, _ = _run(stage, _traffic())
+    planned = {ev.interval for ev in stage.controller.history
+               if ev.result is not None}
+    assert planned
+    return [(r.trace.counts.get("plan_card_orders", 0), r.interval in planned)
+            for r in reports]
+
+
+@pytest.mark.parametrize("min_keys,device", [
+    (None, None), (1000, None), (None, "cpu"), (1000, "cpu")],
+    ids=["no_device", "no_device_low_threshold", "under_threshold",
+         "device"])
+def test_plan_card_orders_are_booked_once_per_card_ordered_plan(
+        monkeypatch, min_keys, device):
+    """A CPU stage hands its controller no device, so no plan orders psi
+    on a card. Handed one (torch's sort on the CPU stands in for the
+    card's), each plan over at least ``CARD_ORDER_MIN_KEYS`` head keys
+    books one card order; the stage's ~3000 keys stay under the default."""
+    if min_keys is not None:
+        monkeypatch.setattr(llfd, "CARD_ORDER_MIN_KEYS", min_keys)
+    stage = _stage()
+    assert stage.controller.plan_device is None
+    if device is not None:
+        stage.controller.plan_device = torch.device(device)
+    engaged = min_keys is not None and device is not None
+    for booked, planned in _card_orders_per_plan(stage):
+        assert booked == (engaged and planned)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("min_keys", [None, 1000],
+                         ids=["under_threshold", "on_the_card"])
+def test_a_cuda_stage_orders_its_plans_on_its_card(monkeypatch, min_keys):
+    """A stage on the card hands its controller the card: its plans book
+    one card order each over the threshold and none under it, and plan
+    exactly what a CPU stage plans."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the stage's kernels have no CPU "
+                    "mode")
+    if min_keys is not None:
+        monkeypatch.setattr(llfd, "CARD_ORDER_MIN_KEYS", min_keys)
+    stage, host = _stage("cuda"), _stage()
+    assert stage.controller.plan_device == torch.device("cuda")
+    for booked, planned in _card_orders_per_plan(stage):
+        assert booked == (min_keys is not None and planned)
+    _run(host, _traffic())
+    assert [ev.result.assignment.table for ev in stage.controller.history
+            if ev.result is not None] == \
+        [ev.result.assignment.table for ev in host.controller.history
+         if ev.result is not None]
 
 
 def test_tracing_changes_nothing_the_stage_computes():
